@@ -1,0 +1,177 @@
+"""The port's fused DSC kernel and its plain PyTorch version.
+
+On the CPU: the plain version ``repro_torch.kernels.ref.fused_dsc_ref``
+equals the JAX oracle and the JAX Pallas kernel (interpret mode) exactly on
+the shape matrix of tests/test_kernels.py; ``ops.dsc_block`` takes the plain
+version for CPU tensors without counting a launch; the build refuses to run
+without nvcc. On a card (``-m gpu``): the CUDA kernel equals the plain
+version exactly. The module imports the JAX reference only inside the tests
+that use it, and the card test builds its blocks with the port's own
+quantizer, so the card test runs without JAX:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
+"""
+
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import dsc as tdsc
+from repro_torch.core.dsc import DSCBlockSpec
+from repro_torch.kernels import build, fused_dsc, ops, ref
+
+# tests/test_kernels.py fused-DSC matrix: prime h2, odd W at stride 2,
+# tile_rows > h2.
+CASES = [
+    (DSCBlockSpec(cin=8, cmid=48, cout=8, stride=1), 12, 4),
+    (DSCBlockSpec(cin=8, cmid=48, cout=16, stride=2), 12, 3),
+    (DSCBlockSpec(cin=16, cmid=96, cout=16, stride=1), 10, 2),
+    (DSCBlockSpec(cin=8, cmid=24, cout=8, stride=1), 9, 5),
+    (DSCBlockSpec(cin=8, cmid=24, cout=8, stride=1), 13, 4),
+    (DSCBlockSpec(cin=8, cmid=24, cout=16, stride=2), 13, 4),
+    (DSCBlockSpec(cin=8, cmid=24, cout=8, stride=2), 11, 4),
+    (DSCBlockSpec(cin=8, cmid=24, cout=8, stride=1), 7, 16),
+]
+
+
+def kernel_args(spec, hw, b_exp_f32=None):
+    """(x_q, weights..., statics) as tests/test_kernels.py builds them, in
+    numpy. ``b_exp_f32`` replaces the zero float expansion bias."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core import dsc as jdsc
+    from repro.core import quant as jquant
+    p32 = jdsc.init_dsc_block_f32(jax.random.PRNGKey(0), spec)
+    if b_exp_f32 is not None:
+        p32 = dict(p32, b_exp=jnp.asarray(b_exp_f32))
+    calib = np.asarray(jax.random.normal(jax.random.PRNGKey(1),
+                                         (hw, hw, spec.cin)))
+    qp = jdsc.quantize_dsc_block(p32, spec, calib)
+    x_q = np.asarray(jquant.quantize(calib, qp.qp_in))
+    return x_q, *_flatten(qp)
+
+
+def port_kernel_args(spec, hw, b_exp_f32=None):
+    """The same, built by the port's own quantizer from a numpy seed."""
+    rng = np.random.default_rng(hw)
+    p32 = tdsc.init_dsc_block_f32(rng, spec)
+    if b_exp_f32 is not None:
+        p32["b_exp"] = torch.from_numpy(b_exp_f32)
+    calib = rng.standard_normal((hw, hw, spec.cin)).astype(np.float32)
+    return _flatten(tdsc.quantize_dsc_block(p32, spec, calib))
+
+
+def _flatten(qp):
+    spec = qp.spec
+    arrays = [np.asarray(a) for a in (
+        qp.w_exp, qp.w_dw.reshape(9, spec.cmid), qp.w_proj, qp.b_exp,
+        qp.b_dw, qp.b_proj, qp.m_exp, qp.m_dw, qp.m_proj)]
+    statics = dict(stride=spec.stride,
+                   zps=(qp.qp_in.zero_point, qp.qp_f1.zero_point,
+                        qp.qp_f2.zero_point, qp.qp_out.zero_point),
+                   q6=(qp.q6_f1, qp.q6_f2))
+    return arrays, statics
+
+
+def torch_args(x_q, arrays, device="cpu"):
+    x = torch.tensor(x_q, device=device)
+    if x.dim() == 3:
+        x = x[None]
+    return x, [torch.tensor(a, device=device) for a in arrays]
+
+
+@pytest.mark.parametrize("spec,hw,tile_rows", CASES)
+def test_ref_matches_jax_oracle_and_pallas(spec, hw, tile_rows):
+    import jax.numpy as jnp
+    from repro.kernels import ref as jref
+    from repro.kernels.fused_dsc import fused_dsc_pallas
+    x_q, arrays, st = kernel_args(spec, hw)
+    x, ts = torch_args(x_q, arrays)
+    got = ref.fused_dsc_ref(x, *ts, **st)[0].numpy()
+    want = np.asarray(jref.fused_dsc_ref(jnp.asarray(x_q), *arrays, **st))
+    np.testing.assert_array_equal(got, want)
+    pallas = fused_dsc_pallas(jnp.asarray(x_q), *arrays, tile_rows=tile_rows,
+                              interpret=True, **st)
+    np.testing.assert_array_equal(got, np.asarray(pallas))
+
+
+def test_ref_batch_equals_single_images():
+    spec, hw, _ = CASES[5]
+    _, arrays, st = kernel_args(spec, hw)
+    xs = np.random.default_rng(0).integers(-128, 128, (3, hw, hw, spec.cin))
+    x, ts = torch_args(xs.astype(np.int8), arrays)
+    batched = ref.fused_dsc_ref(x, *ts, **st)
+    for i in range(3):
+        assert torch.equal(batched[i], ref.fused_dsc_ref(x[i:i + 1], *ts,
+                                                         **st)[0])
+
+
+def test_ref_nonzero_expansion_bias_matches_oracle():
+    # Held against the JAX oracle only. With a non-zero float b_exp, the
+    # Pallas kernel pads out-of-range input ROWS with zp_in before the
+    # expansion (src/repro/kernels/fused_dsc.py:78-85) and so differs from
+    # its own oracle in the first and last output rows, which pads F1 with
+    # zp_f1 (src/repro/kernels/ref.py:41). The port follows the oracle.
+    import jax.numpy as jnp
+    from repro.kernels import ref as jref
+    spec = DSCBlockSpec(cin=8, cmid=24, cout=8, stride=1)
+    b = np.random.default_rng(7).standard_normal(spec.cmid).astype(np.float32)
+    x_q, arrays, st = kernel_args(spec, 9, b_exp_f32=b)
+    assert np.abs(arrays[3] - kernel_args(spec, 9)[1][3]).max() > 0
+    x, ts = torch_args(x_q, arrays)
+    got = ref.fused_dsc_ref(x, *ts, **st)[0].numpy()
+    want = np.asarray(jref.fused_dsc_ref(jnp.asarray(x_q), *arrays, **st))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_ops_dsc_block_cpu_uses_plain_version_without_launch():
+    spec, hw, _ = CASES[1]
+    x_q, arrays, st = kernel_args(spec, hw)
+    x, ts = torch_args(x_q, arrays)
+    before = fused_dsc.LAUNCHES
+    got = ops.dsc_block(x, *ts, **st)
+    assert fused_dsc.LAUNCHES == before
+    assert torch.equal(got, ref.fused_dsc_ref(x, *ts, **st))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fused_dsc.fused_dsc_cuda(x, *ts, **st)
+    assert fused_dsc.LAUNCHES == before
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "kernels")
+    search = os.pathsep.join([os.environ.get("PATH", ""), build.CUDA_BIN])
+    if shutil.which("nvcc", path=search) is None:   # no toolkit: a real miss
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            build.load("fused_dsc")
+    monkeypatch.setattr(shutil, "which", lambda *a, **k: None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build_all()
+    assert not (tmp_path / "kernels").exists()
+
+
+@pytest.mark.gpu
+def test_fused_dsc_cuda_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the fused DSC kernel has no CPU mode")
+    b = np.random.default_rng(7).standard_normal(24).astype(np.float32)
+    cases = [(spec, hw, tr, None) for spec, hw, tr in CASES]
+    cases.append((DSCBlockSpec(cin=8, cmid=24, cout=8, stride=1), 9, 4, b))
+    rng = np.random.default_rng(0)
+    for spec, hw, tile_rows, b_exp in cases:
+        arrays, st = port_kernel_args(spec, hw, b_exp_f32=b_exp)
+        xs = rng.integers(-128, 128, (3, hw, hw, spec.cin)).astype(np.int8)
+        x, ts = torch_args(xs, arrays, device="cuda")
+        before = fused_dsc.LAUNCHES
+        got = fused_dsc.fused_dsc_cuda(x, *ts, tile_rows=tile_rows, **st)
+        torch.cuda.synchronize()
+        assert fused_dsc.LAUNCHES == before + 1
+        want = ref.fused_dsc_ref(x, *ts, **st)
+        assert torch.equal(got, want), (spec, hw, tile_rows)
+        x_cpu, ts_cpu = torch_args(xs, arrays)
+        assert torch.equal(got.cpu(), ref.fused_dsc_ref(x_cpu, *ts_cpu, **st))
+        # the public wrapper sends CUDA tensors to the kernel
+        assert torch.equal(ops.dsc_block(x, *ts, **st), want)
+        assert fused_dsc.LAUNCHES == before + 2
