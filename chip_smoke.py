@@ -3,26 +3,48 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, int8 MobileNetV2-VWW inference through the
-hand-written fused DSC kernel, and fails (non-zero exit, no result line) on
-any error. Phases:
+Drives the port's two paths and fails (non-zero exit, no result line) on any
+error: int8 MobileNetV2-VWW inference through the hand-written fused DSC
+kernel, and gemma2-9b serving (prefill + greedy decode) through the
+hand-written flash-attention and fused-FFN kernels. Phases:
 
 1. the card's name and power limit (nvidia-smi); no CUDA device -> fail;
 2. build every kernel from src/repro_torch/kernels/csrc (one nvcc each, all
    at once) and print the build time and the ptxas register/smem lines;
-3. kernel vs plain version: ``fused_dsc_cuda`` must equal
+3. DSC kernel vs plain version: ``fused_dsc_cuda`` must equal
    ``ref.fused_dsc_ref`` on the card and on the CPU (``torch.equal``) for the
    seven blocks of the 80x80 network at batch 64, the eight ragged shapes of
    tests/test_kernels.py and one block with a non-zero float expansion bias;
-4. end to end: the seed-0 80x80 network on 256 seeded images through
+4. DSC end to end: the seed-0 80x80 network on 256 seeded images through
    ``forward_batch(use_kernel=True)`` on the card; its int8 logits must equal
    the plain v0 forward on the CPU, and the launch count must grow by 7;
-5. serve: ``launch.serve.main(["--mobilenet", "--batch", "256"])``;
-6. per block at batch 256: kernel time (CUDA events, warm L2 as in the
-   forward, where each block's input was just written by the previous one),
-   plain-version time, and the bound max(ops / 1,979 TOP/s, bytes / 3.35 TB/s);
+5. DSC serve: ``launch.serve.main(["--mobilenet", "--batch", "256"])``;
+6. per DSC block at batch 256: kernel time (CUDA events, warm L2 as in the
+   forward), plain-version time, and the bound max(ops / 1,979 TOP/s,
+   bytes / 3.35 TB/s);
 7. where a forward's time goes at batch 1 and 256: host-clock latency and
-   the device time torch.profiler records.
+   the device time torch.profiler records;
+8. LM kernels vs plain versions: flash attention on the tests/test_kernels.py
+   matrix (card and CPU) and at gemma2-9b's shapes (d 256, GQA 16/8,
+   softcap 50, windows 4096, none and 64, ragged P); the fused FFN on the
+   tests/test_kernels.py sweep (card and CPU) and at gemma2-9b's widths,
+   T 1, 4, 77, 1000, 2048; f32 within 2e-5, bf16 within 2e-2 elementwise
+   and 1e-2 in relative norm;
+9. LM end to end: full-width, full-depth gemma2-9b, seeded bf16 weights, B 4,
+   P 512: one prefill and one decode step through the kernels, every kernel
+   call held to its plain version on the same inputs, launches +42 flash and
+   +42 FFN per prefill, +42 FFN per decode step; the bf16 drift between the
+   kernel path, the kernels' plain versions and the plain disciplines
+   (information); one pattern unit in float32, kernel vs reference
+   disciplines, within 1e-3;
+10. LM serve: ``launch.serve.main(["--arch", "gemma2-9b", "--batch", "4",
+   "--prompt-len", "512", "--gen", "16"])``, whose tokens must equal a direct
+   prefill/decode_step greedy loop with the same weights;
+11. each LM kernel at its path shapes: CUDA-graph time, plain-version time,
+   the bound max(flops / 989 TFLOP/s, bytes / 3.35 TB/s), and for flash
+   attention the time of ``torch.compile(flex_attention)`` on the same
+   inputs (the library yardstick, held to the plain version);
+12. where a prefill's and a decode step's time goes (torch.profiler).
 
 The last stdout line is {"ok": true, "device": {...}}; the line before it is
 the {"kernels": [...]} record.
@@ -30,7 +52,9 @@ the {"kernels": [...]} record.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -44,8 +68,11 @@ import torch  # noqa: E402
 from repro_torch.core import dsc  # noqa: E402
 from repro_torch.core.dsc import DSCBlockSpec as S  # noqa: E402
 from repro_torch.core.fusion import Schedule  # noqa: E402
-from repro_torch.kernels import build, fused_dsc, ref  # noqa: E402
+from repro_torch.configs import registry  # noqa: E402
+from repro_torch.kernels import (build, flash_attention, fused_dsc,  # noqa: E402
+                                 fused_ffn, ops, ref)
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import mobilenetv2 as mnv2  # noqa: E402
 
 # H100 SXM published dense peaks (NVIDIA data sheet), at a 700 W limit.
@@ -136,7 +163,8 @@ def phase_build():
         say(f"[build] {b.path.name}: nvcc {b.seconds:.2f} s")
         for line in b.ptxas:
             say(f"[build]   {line}")
-    check("fused_dsc" in built, "fused_dsc was not built")
+    for name in ("fused_dsc", "flash_attention", "fused_ffn"):
+        check(name in built, f"{name} was not built")
 
 
 def run_kernel_vs_plain(name, x_cpu, qp_cpu, device, tile_rows=4) -> None:
@@ -345,6 +373,537 @@ def phase_profile(net_cpu, device, batches=(1, 256), reps=5):
             say(f"[profile]   {us / 1e3 / reps:.6f} ms  {name[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# LM path: gemma2-9b serving through the flash-attention and fused-FFN kernels
+# ---------------------------------------------------------------------------
+
+PEAK_BF16_FLOPS = 989e12
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:42"
+FFN_SOURCE = "src/repro_torch/kernels/csrc/fused_ffn.cu"
+FFN_REPLACES = "src/repro/kernels/fused_ffn.py:44"
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 512, 16
+F32_TOL, BF16_TOL = 2e-5, 2e-2   # tests/test_kernels.py's tolerances
+# bf16 outputs are also held as a whole: ||got - want|| / ||want|| below
+# 1e-2 (two bf16 roundings of one value differ by ~4e-3 at most), so a
+# structured fault that hides under the elementwise 2e-2 cannot pass.
+BF16_NORM_TOL = 1e-2
+NO_FFN_LIBRARY = "no single PyTorch call computes the gated FFN"
+
+
+def gemma(**over):
+    return dataclasses.replace(registry.get("gemma2-9b"), **over)
+
+
+def max_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def rel_norm(got, want) -> float:
+    want = want.float()
+    return float((got.float() - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def close(got, want, tol, what: str) -> tuple[float, float]:
+    """Holds ``got`` to ``want`` elementwise (atol = rtol = ``tol``) and, in
+    bf16, by relative norm; returns (max |diff|, relative norm)."""
+    err, rel = max_err(got, want), rel_norm(got, want)
+    ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+    if got.dtype == torch.bfloat16:
+        ok = ok and rel < BF16_NORM_TOL
+    check(bool(ok) and got.shape == want.shape and got.dtype == want.dtype,
+          f"{what}: kernel vs plain version, max |diff| {err} (tol {tol}), "
+          f"relative norm {rel}")
+    return err, rel
+
+
+def rand(gen, shape, dtype, scale=1.0, device="cuda"):
+    return (torch.randn(shape, generator=gen, device=device)
+            * scale).to(dtype)
+
+
+def phase_lm_kernel_vs_plain(device):
+    """Both LM kernels against their plain versions: the tests/test_kernels.py
+    matrices (on the card and on the CPU) and gemma2-9b's shapes (card)."""
+    gen = torch.Generator(device=device).manual_seed(21)
+    n, worst = 0, 0.0   # worst: the largest bf16 relative norm
+    flash_cases = [(128, 128, 64, True, None, None),
+                   (256, 256, 64, True, None, 50.0),
+                   (128, 384, 64, False, None, None),
+                   (256, 256, 64, True, 64, None),
+                   (100, 100, 32, True, None, None),
+                   (64, 160, 32, False, 48, None)]
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for tq, tk, d, causal, window, softcap in flash_cases:
+            q, k, v = (rand(gen, (4, t, d), dtype, device=device)
+                       for t in (tq, tk, tk))
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            got = ops.attention(q, k, v, **kw)
+            name = f"flash {tq}x{tk}x{d} {kw} {dtype}"
+            _, rel = close(got, ref.attention_ref(q, k, v, **kw), tol,
+                           name + " card")
+            close(got.cpu(), ref.attention_ref(q.cpu(), k.cpu(), v.cpu(), **kw),
+                  tol, name + " CPU")
+            worst = max(worst, rel) if dtype == torch.bfloat16 else worst
+            n += 1
+    # gemma2-9b: B 4, 16 query / 8 KV heads, d 256, causal, softcap 50;
+    # window 4096 (local), none (global), 64 (the window binding); ragged P
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for p_len, window in ((512, 4096), (512, None), (512, 64), (509, 4096),
+                              (509, 64)):
+            q = rand(gen, (LM_BATCH, p_len, 16, 256), dtype, device=device)
+            k, v = (rand(gen, (LM_BATCH, p_len, 8, 256), dtype, device=device)
+                    for _ in range(2))
+            kw = dict(causal=True, window=window, softcap=50.0)
+            got = ops.mha(q, k, v, n_kv_heads=8, **kw)
+            _, rel = close(got, ref.mha_ref(q, k, v, **kw), tol,
+                           f"flash gemma P{p_len} window {window} {dtype}")
+            worst = max(worst, rel) if dtype == torch.bfloat16 else worst
+            n += 1
+    say(f"[lm-kernel] flash_attention == attention_ref on {n} shapes "
+        f"(f32 2e-5, bf16 2e-2 and relative norm < {BF16_NORM_TOL}: largest "
+        f"bf16 relative norm {worst:.6e})")
+
+    n, worst = 0, 0.0
+    acts = ("silu", "gelu", "relu_sq")
+    ffn_cases = [(t, d, f, act, True) for t, d, f in
+                 ((64, 128, 512), (32, 64, 192), (128, 128, 384)) for act in acts]
+    ffn_cases += [(64, 96, 256, "gelu", False), (48, 128, 256, "relu", True)]
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for t, d, f, act, gated in ffn_cases:
+            x = rand(gen, (t, d), dtype, device=device)
+            wg, wu, wd = (rand(gen, s, dtype, 0.05, device)
+                          for s in ((d, f), (d, f), (f, d)))
+            wg = wg if gated else None
+            got = ops.ffn(x, wg, wu, wd, act=act)
+            name = f"ffn {t}x{d}x{f} {act} gated={gated} {dtype}"
+            _, rel = close(got, ref.fused_ffn_ref(x, wg, wu, wd, act=act), tol,
+                           name + " card")
+            close(got.cpu(), ref.fused_ffn_ref(
+                x.cpu(), None if wg is None else wg.cpu(), wu.cpu(), wd.cpu(),
+                act=act), tol, name + " CPU")
+            worst = max(worst, rel) if dtype == torch.bfloat16 else worst
+            n += 1
+    cfg = registry.get("gemma2-9b")
+    d, f = cfg.d_model, cfg.d_ff
+    for dtype, tol, ts in ((torch.bfloat16, BF16_TOL, (1, 4, 2048, 1000)),
+                           (torch.float32, F32_TOL, (1, 77))):
+        wg, wu = (rand(gen, (d, f), dtype, d ** -0.5, device) for _ in range(2))
+        wd = rand(gen, (f, d), dtype, f ** -0.5, device)
+        for t in ts:
+            x = rand(gen, (t, d), dtype, device=device)
+            got = ops.ffn(x, wg, wu, wd, act="gelu")
+            _, rel = close(got, ref.fused_ffn_ref(x, wg, wu, wd, act="gelu"),
+                           tol, f"ffn gemma T{t} {dtype}")
+            worst = max(worst, rel) if dtype == torch.bfloat16 else worst
+            n += 1
+        del wg, wu, wd
+    say(f"[lm-kernel] fused_ffn == fused_ffn_ref on {n} shapes "
+        f"(f32 2e-5, bf16 2e-2 and relative norm < {BF16_NORM_TOL}: largest "
+        f"bf16 relative norm {worst:.6e})")
+
+
+class Checked:
+    """Within the block, every ``ops.mha`` / ``ops.ffn`` call made by the
+    model also runs the plain version on the same inputs and holds the
+    kernel's output to it. The plain calls launch no kernel."""
+
+    def __init__(self, tol: float):
+        self.tol, self.saved = tol, None
+        self.errs = {"flash": 0.0, "ffn": 0.0}   # largest max |diff|
+        self.rels = {"flash": 0.0, "ffn": 0.0}   # largest relative norm
+
+    def _note(self, kernel, err_rel):
+        self.errs[kernel] = max(self.errs[kernel], err_rel[0])
+        self.rels[kernel] = max(self.rels[kernel], err_rel[1])
+
+    def __enter__(self):
+        self.saved = (ops.mha, ops.ffn)
+        mha, ffn = self.saved
+
+        def mha_checked(q, k, v, *, n_kv_heads, **kw):
+            out = mha(q, k, v, n_kv_heads=n_kv_heads, **kw)
+            self._note("flash", close(out, ref.mha_ref(q, k, v, **kw),
+                                      self.tol,
+                                      f"model flash call {tuple(q.shape)}"))
+            return out
+
+        def ffn_checked(x, w_gate, w_up, w_down, *, act):
+            out = ffn(x, w_gate, w_up, w_down, act=act)
+            self._note("ffn", close(
+                out, ref.fused_ffn_ref(x, w_gate, w_up, w_down, act=act),
+                self.tol, f"model ffn call {tuple(x.shape)}"))
+            return out
+
+        ops.mha, ops.ffn = mha_checked, ffn_checked
+        return self
+
+    def __exit__(self, *exc):
+        ops.mha, ops.ffn = self.saved
+
+
+def reset_lm_counts():
+    flash_attention.LAUNCHES = 0
+    fused_ffn.LAUNCHES = 0
+
+
+def lm_counts():
+    return flash_attention.LAUNCHES, fused_ffn.LAUNCHES
+
+
+def greedy(logits, cfg):
+    return logits[:, :cfg.vocab].argmax(dim=-1)
+
+
+class PlainOps:
+    """Within the block, ``ops.mha`` / ``ops.ffn`` run the kernels' plain
+    versions: the same function, with bf16 rounding at other places."""
+
+    def __enter__(self):
+        self.saved = (ops.mha, ops.ffn)
+        ops.mha = lambda q, k, v, *, n_kv_heads, **kw: ref.mha_ref(q, k, v,
+                                                                   **kw)
+        ops.ffn = ref.fused_ffn_ref
+        return self
+
+    def __exit__(self, *exc):
+        ops.mha, ops.ffn = self.saved
+
+
+def hidden_states(params, cfg, tokens):
+    """The residual stream after the embedding and after every layer of a
+    prefill, and the last-token logits."""
+    x = lm._embed(params, cfg, tokens)
+    cache = lm.init_cache(cfg, tokens.shape[0], tokens.shape[1],
+                          device=tokens.device)
+    states = [x]
+    for p, kind, key in lm._layers(params, cfg):
+        x, _ = lm.layer_prefill(x, p, kind, cfg, lm._layer_cache(cache, key))
+        states.append(x)
+    return states, lm._head(params, cfg, x[:, -1:])[:, 0]
+
+
+def lm_divergence(params, cfg, prompts):
+    """Prints (information, not a gate) the relative distance of the
+    residual stream, layer by layer, between three bf16 paths: the kernel
+    path, the same disciplines with the kernels' plain versions, and the
+    plain disciplines (attention fused, FFN reference); and their last-token
+    logit gaps and greedy agreement. The last pair has no kernel on either
+    side: if it drifts as far as the pairs with the kernel path, the drift
+    is bf16 rounding carried by depth, not a kernel bias."""
+    hk, lk = hidden_states(params, cfg, prompts)
+    with PlainOps():
+        hp, lp = hidden_states(params, cfg, prompts)
+    hd, ld = hidden_states(
+        params, gemma(attn_impl="fused", block_impl="reference"), prompts)
+    layers = [i for i in (1, 2, 6, 12, 21, 30, 42) if i < len(hk)]
+    for name, ha, la, hb, lb in (
+            ("kernel path vs plain versions of the kernels", hk, lk, hp, lp),
+            ("kernel path vs plain disciplines", hk, lk, hd, ld),
+            ("plain versions vs plain disciplines (no kernel)", hp, lp, hd,
+             ld)):
+        gaps = ", ".join(f"{i}: {rel_norm(ha[i], hb[i]):.6f}" for i in layers)
+        agree = int((greedy(la, cfg) == greedy(lb, cfg)).sum())
+        say(f"[lm-e2e] bf16 {name}: residual relative distance after layer "
+            f"{{{gaps}}}; last-token logit max |diff| {max_err(la, lb)} "
+            f"(logit std {float(la.std()):.6f}); greedy tokens agree "
+            f"{agree}/{la.shape[0]} (information, not a gate)")
+
+
+def phase_lm_end_to_end(device):
+    """Full-width, full-depth gemma2-9b in bf16: one prefill and one decode
+    step through the kernels, every kernel call held to its plain version;
+    the same weights under the plain disciplines for information; then one
+    pattern unit in float32, kernel vs reference disciplines."""
+    cfg = gemma(attn_impl="kernel", block_impl="fused")
+    n_layers = cfg.n_layers
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, 0, device)
+    torch.cuda.synchronize()
+    say(f"[lm-e2e] gemma2-9b: {cfg.param_count():,} params, bf16, "
+        f"{n_layers} layers, seeded on the card in "
+        f"{time.perf_counter() - t0:.3f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated")
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT))).to(device)
+    max_len = LM_PROMPT + LM_GEN
+    with Checked(BF16_TOL) as chk:
+        reset_lm_counts()
+        logits, cache = lm.prefill(params, cfg, prompts, max_len=max_len)
+        torch.cuda.synchronize()
+        pre = lm_counts()
+        tok = greedy(logits, cfg)
+        reset_lm_counts()
+        logits2, cache = lm.decode_step(params, cfg, cache, tok, LM_PROMPT)
+        torch.cuda.synchronize()
+        dec = lm_counts()
+    check(pre == (n_layers, n_layers),
+          f"prefill launched (flash, ffn) {pre}, expected {n_layers} each")
+    check(dec == (0, n_layers),
+          f"decode step launched (flash, ffn) {dec}, expected (0, {n_layers})")
+    for name, lg in (("prefill", logits), ("decode", logits2)):
+        check(lg.shape == (LM_BATCH, cfg.vocab_padded())
+              and bool(torch.isfinite(lg).all()),
+              f"{name} logits {tuple(lg.shape)} not finite or wrong shape")
+    say(f"[lm-e2e] prefill B{LM_BATCH} P{LM_PROMPT}: launches (flash, ffn) "
+        f"{pre}; decode step: {dec}; every call within {BF16_TOL} of its "
+        f"plain version and within relative norm {BF16_NORM_TOL} (max |diff| "
+        f"flash {chk.errs['flash']}, ffn {chk.errs['ffn']}; largest relative "
+        f"norm flash {chk.rels['flash']:.6e}, ffn {chk.rels['ffn']:.6e})")
+    # information: how far bf16 rounding carries through 42 layers
+    lm_divergence(params, cfg, prompts)
+    del params, cache, logits, logits2
+    torch.cuda.empty_cache()
+
+    # one pattern unit (2 layers) at full width in float32
+    tol = 1e-3
+    f32 = dict(n_layers=len(cfg.pattern), dtype="float32")
+    kcfg = gemma(attn_impl="kernel", block_impl="fused", **f32)
+    rcfg = gemma(attn_impl="reference", block_impl="reference", **f32)
+    params = lm.init_params(kcfg, 1, device)
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 128))).to(device)
+    # an f32 KV cache: the default bf16 cache rounds q, k and v in decode,
+    # where a 1e-6 difference can flip one rounding
+    f32_cache = dict(max_len=130, cache_dtype=torch.float32)
+    reset_lm_counts()
+    kl, kc = lm.prefill(params, kcfg, prompts, **f32_cache)
+    kl2, _ = lm.decode_step(params, kcfg, kc, greedy(kl, cfg), 128)
+    counts = lm_counts()
+    rl, rc = lm.prefill(params, rcfg, prompts, **f32_cache)
+    rl2, _ = lm.decode_step(params, rcfg, rc, greedy(rl, cfg), 128)
+    torch.cuda.synchronize()
+    check(counts == (2, 4), f"f32 unit launched (flash, ffn) {counts}")
+    e1, e2 = max_err(kl, rl), max_err(kl2, rl2)
+    check(e1 <= tol and e2 <= tol,
+          f"f32 unit: kernel vs reference logits differ by {e1}, {e2}")
+    check(torch.equal(greedy(kl, cfg), greedy(rl, cfg)),
+          "f32 unit: greedy tokens differ")
+    say(f"[lm-e2e] float32, one pattern unit at full width, B2 P128: kernel "
+        f"vs reference disciplines last-token logits max |diff| prefill {e1}, "
+        f"decode {e2} (tol {tol}); greedy tokens equal")
+    del params, kc, rc
+    torch.cuda.empty_cache()
+
+
+def phase_lm_serve(device):
+    """The user's entry point: ``launch.serve --arch gemma2-9b``. Its tokens
+    must equal a direct prefill/decode_step greedy loop with the same
+    seeded weights. Returns the launch counts of the serve run, with the
+    FFN's split by token count."""
+    ffn_by_t = {}
+    real_ffn = ops.ffn
+
+    def tally(x, *a, **kw):
+        ffn_by_t[x.shape[0]] = ffn_by_t.get(x.shape[0], 0) + 1
+        return real_ffn(x, *a, **kw)
+
+    argv = ["--arch", "gemma2-9b", "--batch", str(LM_BATCH), "--prompt-len",
+            str(LM_PROMPT), "--gen", str(LM_GEN)]
+    reset_lm_counts()
+    ops.ffn = tally
+    try:
+        gen_tokens = serve.main(argv)
+    finally:
+        ops.ffn = real_ffn
+    torch.cuda.synchronize()
+    counts = lm_counts()
+    cfg = gemma(attn_impl="kernel", block_impl="fused")
+    n = cfg.n_layers
+    check(counts == (n, n * LM_GEN),
+          f"serve launched (flash, ffn) {counts}, expected ({n}, {n * LM_GEN})")
+    check(gen_tokens.shape == (LM_BATCH, LM_GEN), "served token shape")
+    params = lm.init_params(cfg, 0, device)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT))).to(device)
+    logits, cache = lm.prefill(params, cfg, prompts,
+                               max_len=LM_PROMPT + LM_GEN)
+    tok = greedy(logits, cfg)
+    want = [tok]
+    for i in range(LM_GEN - 1):
+        logits, cache = lm.decode_step(params, cfg, cache, tok, LM_PROMPT + i)
+        tok = greedy(logits, cfg)
+        want.append(tok)
+    want = torch.stack(want, 1).cpu().numpy()
+    check(np.array_equal(gen_tokens, want),
+          "served tokens != direct prefill/decode_step greedy loop")
+    say(f"[lm-serve] {LM_BATCH} prompts x {LM_PROMPT} tokens, {LM_GEN} "
+        f"generated each; launches (flash, ffn) {counts}, ffn by token count "
+        f"{dict(sorted(ffn_by_t.items()))}; tokens == direct greedy loop")
+    return params, cache, {"flash": counts[0], "ffn_prefill": ffn_by_t.get(
+        LM_BATCH * LM_PROMPT, 0), "ffn_decode": ffn_by_t.get(LM_BATCH, 0)}
+
+
+def flash_bound(b, p, h, hkv, d, item=2):
+    """Causal attention: QK^T and PV over the lower triangle (halved), q, k,
+    v and o each moved once."""
+    flops = 4 * b * h * p * p * d / 2
+    nbytes = item * (2 * b * p * h * d + 2 * b * p * hkv * d)
+    return flops, nbytes
+
+
+def ffn_bound(t, d, f, item=2):
+    """Gated FFN: three matmuls; x, the three weights and y moved once."""
+    return 6 * t * d * f, item * (2 * t * d + 3 * d * f)
+
+
+def lm_row(name, source, replaces, launches, err_rel, ms, plain_ms, flops,
+           nbytes, library_ms, library_note, extra):
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops > t_bytes else "bytes"
+    library = ("none" if library_ms is None else f"{library_ms:.6f} ms")
+    say(f"[time] {name}: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by}), {bound_ms / ms:.2%} of bound; "
+        f"library {library} ({library_note}); max |diff| {err_rel[0]}, "
+        f"relative norm {err_rel[1]:.6e}")
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": err_rel[0], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "library_note": library_note,
+            "rel_norm_err": err_rel[1], "flops": flops, "bytes": nbytes,
+            **extra}
+
+
+def flex_attention_library(q, k, v, want, *, window, softcap):
+    """The library yardstick for the flash kernel: one call of
+    ``torch.compile(flex_attention)`` with the logit softcap as its
+    ``score_mod``, the causal window as its block mask and GQA, on the same
+    inputs in its (B, H, T, d) layout. It is held to the plain version and
+    timed here by CUDA graph; the port never calls it. Returns (ms or None,
+    note)."""
+    build_dir = Path(__file__).resolve().parent / "build"
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(build_dir / sub))
+    b, p, h, d = q.shape
+
+    def score_mod(s, b_, h_, q_idx, kv_idx):
+        return softcap * torch.tanh(s / softcap)
+
+    def mask_mod(b_, h_, q_idx, kv_idx):
+        keep = q_idx >= kv_idx
+        return keep if window is None else keep & (q_idx - kv_idx < window)
+
+    try:
+        import torch._inductor.config as inductor_config
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+        inductor_config.compile_threads = 1   # no compile worker processes
+        mask = create_block_mask(mask_mod, None, None, p, p,
+                                 device=q.device)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        flex = torch.compile(flex_attention)
+        call = lambda: flex(qt, kt, vt, score_mod=score_mod, block_mask=mask,
+                            scale=d ** -0.5, enable_gqa=True)
+        err, rel = close(call().transpose(1, 2), want, BF16_TOL,
+                         "flex_attention at the path shape")
+        ms = time_ms(call, 10, 3)
+    except Exception as e:   # a yardstick that fails is recorded, not fatal
+        torch.cuda.synchronize()
+        return None, (f"torch {torch.__version__} flex_attention failed: "
+                      f"{type(e).__name__}: {str(e)[:300]}")
+    return ms, (f"torch.compile(flex_attention), torch {torch.__version__}, "
+                f"softcap score_mod, causal window block mask, GQA; max "
+                f"|diff| {err}, relative norm {rel:.6e} to the plain version")
+
+
+def phase_lm_kernel_times(device, launches):
+    """Each LM kernel at its path shapes (bf16): CUDA-graph time, the plain
+    version's and the library's time on the same inputs, and the bound."""
+    gen = torch.Generator(device=device).manual_seed(31)
+    cfg = registry.get("gemma2-9b")
+    bf16 = torch.bfloat16
+    b, p, h, hkv, hd = LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.head_dim_
+    q = rand(gen, (b, p, h, hd), bf16, device=device)
+    k, v = (rand(gen, (b, p, hkv, hd), bf16, device=device) for _ in range(2))
+    kw = dict(causal=True, window=cfg.window, softcap=cfg.attn_softcap)
+    kern = lambda: ops.mha(q, k, v, n_kv_heads=hkv, **kw)
+    plain = lambda: ref.mha_ref(q, k, v, **kw)
+    want = plain()
+    err_rel = close(kern(), want, BF16_TOL, "flash at the path shape")
+    ms, plain_ms = time_ms(kern, 10, 3), time_ms(plain, 10, 3)
+    library_ms, library_note = flex_attention_library(
+        q, k, v, want, window=cfg.window, softcap=cfg.attn_softcap)
+    rows = [lm_row(
+        f"flash_attention[prefill B{b} P{p} H{h}/{hkv} d{hd}]", FLASH_SOURCE,
+        FLASH_REPLACES, launches["flash"], err_rel, ms, plain_ms,
+        *flash_bound(b, p, h, hkv, hd), library_ms, library_note,
+        {"shape": [b, p, h, hkv, hd], "launches_per_prefill": cfg.n_layers,
+         "launches_per_decode_step": 0})]
+    del q, k, v, want
+    d, f = cfg.d_model, cfg.d_ff
+    wg, wu = (rand(gen, (d, f), bf16, d ** -0.5, device) for _ in range(2))
+    wd = rand(gen, (f, d), bf16, f ** -0.5, device)
+    for phase, t, n_launch in (("prefill", b * p, launches["ffn_prefill"]),
+                               ("decode", b, launches["ffn_decode"])):
+        x = rand(gen, (t, d), bf16, device=device)
+        kern = lambda: ops.ffn(x, wg, wu, wd, act=cfg.act)
+        plain = lambda: ref.fused_ffn_ref(x, wg, wu, wd, act=cfg.act)
+        err_rel = close(kern(), plain(), BF16_TOL, f"ffn at T {t}")
+        rows.append(lm_row(
+            f"fused_ffn[{phase} T{t} d{d} d_ff{f} gelu]", FFN_SOURCE,
+            FFN_REPLACES, n_launch, err_rel, time_ms(kern, 10, 3),
+            time_ms(plain, 10, 3), *ffn_bound(t, d, f), None, NO_FFN_LIBRARY,
+            {"shape": [t, d, f], "launches_per_prefill":
+             cfg.n_layers if phase == "prefill" else 0,
+             "launches_per_decode_step": cfg.n_layers if phase == "decode"
+             else 0}))
+    return rows
+
+
+def phase_lm_profile(params, device, reps=3):
+    """Where a prefill's and a decode step's time goes: host-clock latency
+    (unprofiled) and the device time torch.profiler records."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cfg = gemma(attn_impl="kernel", block_impl="fused")
+    prompts = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT))).to(device)
+    max_len = LM_PROMPT + LM_GEN
+    state = {}
+
+    def do_prefill():
+        state["logits"], state["cache"] = lm.prefill(params, cfg, prompts,
+                                                     max_len=max_len)
+
+    def do_decode():
+        lm.decode_step(params, cfg, state["cache"], greedy(state["logits"], cfg),
+                       LM_PROMPT)
+
+    for name, fn in (("prefill", do_prefill), ("decode step", do_decode)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / reps * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        on_device = [e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+        if not on_device:
+            say(f"[lm-profile] {name}: {host_ms:.6f} ms (host clock); the "
+                "profiler recorded no device time: busy share not measured")
+            continue
+        by_name = {}
+        for e in on_device:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+        busy_ms = sum(by_name.values()) / 1e3 / reps
+        say(f"[lm-profile] {name} B{LM_BATCH} P{LM_PROMPT}: {host_ms:.6f} ms "
+            f"(host clock); device busy {busy_ms:.6f} ms ({busy_ms / host_ms:.2%}"
+            f"), idle share {1 - busy_ms / host_ms:.2%}; "
+            f"{len(on_device) // reps} device activities")
+        for op, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            say(f"[lm-profile]   {us / 1e3 / reps:.6f} ms  {op[:90]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -363,6 +922,14 @@ def main() -> int:
     phase_serve(net_cpu)
     entries = phase_kernel_times(net_cpu, device, launches)
     phase_profile(net_cpu, device)
+
+    phase_lm_kernel_vs_plain(device)
+    phase_lm_end_to_end(device)
+    params, _, lm_launches = phase_lm_serve(device)
+    entries += phase_lm_kernel_times(device, lm_launches)
+    phase_lm_profile(params, device)
+    del params
+    say(card_line())
     say("kernels " + json.dumps(entries))
     say(json.dumps({"kernels": entries}))
     say(json.dumps({"ok": True, "device": {

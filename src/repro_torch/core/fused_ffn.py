@@ -1,0 +1,117 @@
+"""FusedBlock: the paper's zero-buffer dataflow generalized to LM blocks
+(port of ``repro.core.fused_ffn``).
+
+A transformer FFN is the same expand -> mix -> project sandwich as the
+MobileNetV2 inverted residual:
+
+    x --[W_gate/W_up: d -> d_ff]--> h --[elementwise act·gate]--> h'
+      --[W_down: d_ff -> d]--> y
+
+``ffn_reference`` materializes the (tokens, d_ff) intermediates, the paper's
+v0. ``ffn_fused`` streams d_ff in chunks with an f32 output-stationary
+accumulator, so no (tokens, d_ff) tensor exists. ``ffn_apply(impl="fused")``
+on a CUDA tensor runs the same function as the hand-written fused-FFN kernel
+(``kernels/ops.ffn``), which keeps each h chunk in shared memory.
+
+The reference's remat policies belong to training and are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import ACTS
+
+Act = Callable[[torch.Tensor], torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# Reference (layer-by-layer): intermediates materialized.
+# ---------------------------------------------------------------------------
+
+
+def ffn_reference(x, w_gate, w_up, w_down, *, act: Act = ACTS["silu"]):
+    """Gated FFN with the (tokens, d_ff) intermediates materialized."""
+    return (act(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def ffn_reference_ungated(x, w_up, w_down, *, act: Act = ACTS["gelu"]):
+    return act(x @ w_up) @ w_down
+
+
+# ---------------------------------------------------------------------------
+# Fused: d_ff streamed in chunks, output-stationary f32 accumulator.
+# ---------------------------------------------------------------------------
+
+
+def _chunks(d_ff: int, chunk: int):
+    if d_ff % chunk:
+        chunk = _pick_chunk(d_ff, chunk)
+    return [(c, c + chunk) for c in range(0, d_ff, chunk)]
+
+
+def ffn_fused(x, w_gate, w_up, w_down, *, act: Act = ACTS["silu"],
+              chunk: int = 1024):
+    """Zero-buffer gated FFN: each chunk's products in x's dtype, the sum
+    over chunks in f32. Peak intermediate: (tokens, chunk)."""
+    acc = torch.zeros(x.shape[:-1] + (w_down.shape[1],), dtype=torch.float32,
+                      device=x.device)
+    for lo, hi in _chunks(w_gate.shape[1], chunk):
+        h = act(x @ w_gate[:, lo:hi]) * (x @ w_up[:, lo:hi])
+        acc = acc + (h @ w_down[lo:hi]).float()
+    return acc.to(x.dtype)
+
+
+def ffn_fused_ungated(x, w_up, w_down, *, act: Act = ACTS["gelu"],
+                      chunk: int = 1024):
+    acc = torch.zeros(x.shape[:-1] + (w_down.shape[1],), dtype=torch.float32,
+                      device=x.device)
+    for lo, hi in _chunks(w_up.shape[1], chunk):
+        acc = acc + (act(x @ w_up[:, lo:hi]) @ w_down[lo:hi]).float()
+    return acc.to(x.dtype)
+
+
+def _pick_chunk(d_ff: int, want: int) -> int:
+    """Largest divisor of d_ff that is <= want (fall back to d_ff)."""
+    for c in range(min(want, d_ff), 0, -1):
+        if d_ff % c == 0:
+            return c
+    return d_ff
+
+
+# ---------------------------------------------------------------------------
+# Dispatch used by the model
+# ---------------------------------------------------------------------------
+
+
+def ffn_apply(x, params, *, gated: bool, act_name: str, impl: str = "fused",
+              chunk: int = 1024):
+    """impl: 'reference' (materialize) | 'fused' (zero-buffer).
+
+    ``params``: dict with w_gate/w_up/w_down (gated) or w_up/w_down, cast to
+    x's dtype here (a no-op for weights already stored in it). ``fused`` on
+    a CUDA tensor launches the fused-FFN kernel on the (tokens, d) rows; on
+    a CPU tensor it runs the chunked plain dataflow.
+    """
+    if impl not in ("reference", "fused"):
+        raise ValueError(f"unknown FFN impl {impl!r} (reference | fused)")
+    act = ACTS[act_name]
+    dt = x.dtype
+    w_up = params["w_up"].to(dt)
+    w_down = params["w_down"].to(dt)
+    w_gate = params["w_gate"].to(dt) if gated else None
+    if impl == "fused" and x.device.type == "cuda":
+        lead = x.shape[:-1]
+        y = kops.ffn(x.reshape(-1, x.shape[-1]).contiguous(), w_gate, w_up,
+                     w_down, act=act_name)
+        return y.reshape(*lead, y.shape[-1])
+    if gated:
+        if impl == "reference":
+            return ffn_reference(x, w_gate, w_up, w_down, act=act)
+        return ffn_fused(x, w_gate, w_up, w_down, act=act, chunk=chunk)
+    if impl == "reference":
+        return ffn_reference_ungated(x, w_up, w_down, act=act)
+    return ffn_fused_ungated(x, w_up, w_down, act=act, chunk=chunk)

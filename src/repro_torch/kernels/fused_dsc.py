@@ -36,8 +36,10 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
-           device: torch.device) -> None:
+def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
+                 device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: what every launcher checks before it passes a pointer."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -86,7 +88,7 @@ def fused_dsc_cuda(x_q, w_exp, w_dw9, w_proj, b_exp, b_dw, b_proj,
             (m_exp, "m_exp", torch.float32, (cmid,)),
             (m_dw, "m_dw", torch.float32, (cmid,)),
             (m_proj, "m_proj", torch.float32, (cout,))):
-        _check(t, name, dtype, shape, dev)
+        check_tensor(t, name, dtype, shape, dev)
     h2, w2 = -(-h // stride), -(-w // stride)
     out = torch.empty((b, h2, w2, cout), dtype=torch.int8, device=dev)
     lib = _lib()

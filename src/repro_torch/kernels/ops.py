@@ -1,4 +1,5 @@
-"""Public entry points for the kernels: one call per fused block.
+"""Public entry points for the kernels: one call per fused block, FFN or
+attention.
 
 A CUDA tensor goes to the hand-written kernel, which launches or raises; a
 CPU tensor goes to the kernel's plain PyTorch version. Model code calls
@@ -7,9 +8,13 @@ these wrappers, never the kernels directly.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_dsc as _dsc
+from repro_torch.kernels import fused_ffn as _ffn
 from repro_torch.kernels import ref
 
 
@@ -26,3 +31,51 @@ def dsc_block(x_q: torch.Tensor, w_exp, w_dw9, w_proj, b_exp, b_dw, b_proj,
     if x_q.device.type == "cpu":
         return ref.fused_dsc_ref(*args, stride=stride, zps=zps, q6=q6)
     raise ValueError(f"dsc_block: unsupported device {x_q.device}")
+
+
+def ffn(x: torch.Tensor, w_gate: Optional[torch.Tensor], w_up: torch.Tensor,
+        w_down: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
+    """Fused gated (or, with ``w_gate`` None, ungated) FFN on a (T, d)
+    token tile."""
+    if x.device.type == "cuda":
+        return _ffn.fused_ffn_cuda(x, w_gate, w_up, w_down, act=act)
+    if x.device.type == "cpu":
+        return ref.fused_ffn_ref(x, w_gate, w_up, w_down, act=act)
+    raise ValueError(f"ffn: unsupported device {x.device}")
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              softcap: Optional[float] = None,
+              sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Flash attention on (BH, Tq, d) tensors."""
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              sm_scale=sm_scale)
+    if q.device.type == "cuda":
+        return _fa.flash_attention_cuda(q[:, :, None], k[:, :, None],
+                                        v[:, :, None], **kw)[:, :, 0]
+    if q.device.type == "cpu":
+        return ref.attention_ref(q, k, v, **kw)
+    raise ValueError(f"attention: unsupported device {q.device}")
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+        n_kv_heads: int, causal: bool = True, window: Optional[int] = None,
+        softcap: Optional[float] = None,
+        sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Multi-head GQA attention: (B, T, H, d) q, (B, T, Hkv, d) k/v.
+
+    Query head ``h`` attends with KV head ``h // (H // Hkv)``. The kernel
+    indexes that head in place; the plain version repeats K and V.
+    """
+    if k.shape[2] != n_kv_heads or v.shape[2] != n_kv_heads:
+        raise ValueError(f"k/v have {k.shape[2]}/{v.shape[2]} heads, "
+                         f"expected n_kv_heads={n_kv_heads}")
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              sm_scale=sm_scale)
+    if q.device.type == "cuda":
+        return _fa.flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), **kw)
+    if q.device.type == "cpu":
+        return ref.mha_ref(q, k, v, **kw)
+    raise ValueError(f"mha: unsupported device {q.device}")

@@ -7,6 +7,8 @@ the CUDA kernel with it on the card. It runs on any device.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 
@@ -40,3 +42,88 @@ def fused_dsc_ref(x_q, w_exp, w_dw9, w_proj, b_exp, b_dw, b_proj,
                           relu6_max_q=q6_f2)
     acc3 = quant.int8_matmul(f2, w_proj) + b_proj
     return quant.requantize(acc3, m_proj, zp_out)
+
+
+# ---------------------------------------------------------------------------
+# fused FFN plain version
+# ---------------------------------------------------------------------------
+
+
+def _silu(x):
+    return x * torch.sigmoid(x)
+
+
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")
+
+
+def _relu_sq(x):
+    return torch.square(torch.clamp_min(x, 0.0))
+
+
+def _relu(x):
+    return torch.clamp_min(x, 0.0)
+
+
+ACTS = {"silu": _silu, "gelu": _gelu, "relu_sq": _relu_sq, "relu": _relu}
+
+
+def fused_ffn_ref(x, w_gate, w_up, w_down, *, act: str = "silu"):
+    """y = act(x @ w_gate) * (x @ w_up) @ w_down, f32 accumulation; ``h`` is
+    cast to ``x.dtype`` before the down projection, as the kernel does.
+    ``w_gate`` may be None (ungated: y = act(x @ w_up) @ w_down)."""
+    f = ACTS[act]
+    x32 = x.float()
+    if w_gate is None:
+        h = f(x32 @ w_up.float())
+    else:
+        h = f(x32 @ w_gate.float()) * (x32 @ w_up.float())
+    return (h.to(x.dtype).float() @ w_down.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# flash attention plain version: materializes the full (Tq, Tk) scores
+# ---------------------------------------------------------------------------
+
+
+def attention_ref(q, k, v, *, causal: bool = True,
+                  window: Optional[int] = None,
+                  softcap: Optional[float] = None,
+                  sm_scale: Optional[float] = None):
+    """(BH, Tq, d) x (BH, Tk, d) -> (BH, Tq, d). Rows with no valid key
+    give zeros."""
+    _, tq, d = q.shape
+    tk = k.shape[1]
+    scale = float(sm_scale if sm_scale is not None else d ** -0.5)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    q_pos = torch.arange(tq, device=q.device)[:, None]
+    k_pos = torch.arange(tk, device=q.device)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window is not None:
+        mask &= (q_pos - k_pos) < window
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask.any(dim=-1, keepdim=True), p, torch.zeros_like(p))
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def mha_ref(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+            softcap: Optional[float] = None,
+            sm_scale: Optional[float] = None):
+    """GQA attention on (B, Tq, H, d) q and (B, Tk, Hkv, d) k/v: each KV
+    head repeated to its ``H // Hkv`` query heads, then ``attention_ref``."""
+    b, tq, h, d = q.shape
+    group = h // k.shape[2]
+    if group > 1:
+        k = torch.repeat_interleave(k, group, dim=2)
+        v = torch.repeat_interleave(v, group, dim=2)
+    qf = q.transpose(1, 2).reshape(b * h, tq, d)
+    kf = k.transpose(1, 2).reshape(b * h, -1, d)
+    vf = v.transpose(1, 2).reshape(b * h, -1, d)
+    o = attention_ref(qf, kf, vf, causal=causal, window=window,
+                      softcap=softcap, sm_scale=sm_scale)
+    return o.reshape(b, h, tq, d).transpose(1, 2)

@@ -1,20 +1,34 @@
-"""Serving launcher: batched int8 image classification (MobileNetV2-VWW,
-the paper's own deployment) on the card, through the fused DSC kernel.
+"""Serving launcher: batched prefill + greedy decode loop (LM), or batched
+int8 image classification (MobileNetV2-VWW, the paper's own deployment), on
+the card through the hand-written kernels.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
+        --batch 4 --prompt-len 512 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
+        --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --mobilenet --batch 256
-    PYTHONPATH=src python -m repro_torch.launch.serve --mobilenet --batch 2 \
-        --device cpu
+
+``--arch`` runs the reference launcher's LM loop with seeded random
+weights: one prefill of ``--batch`` prompts of ``--prompt-len`` tokens, then
+``--gen - 1`` decode steps, each token the argmax of the last logits.
+``--attn-impl`` and ``--block-impl`` set the config's attention and FFN
+disciplines; their defaults, ``kernel`` and ``fused``, run the flash-
+attention and fused-FFN kernels on a card (``--attn-impl fused
+--block-impl reference`` is the reference launcher's own setting). On a
+card the weights are stored in the config's dtype (bf16), norm scales in
+f32.
 
 ``--mobilenet`` sweeps batch sizes 1, 2, 4, ... up to ``--batch``; each size
 runs one warm-up forward, then one timed forward between two
-``torch.cuda.synchronize()`` calls. On ``--device cpu`` the blocks run the
-kernel's plain PyTorch version. The LM path (``serve_lm``) is not ported
-yet (ROADMAP.md Queue 1, LM path).
+``torch.cuda.synchronize()`` calls.
+
+On ``--device cpu`` every kernel call runs its plain PyTorch version.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import time
 
@@ -22,7 +36,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.configs import registry
 from repro_torch.configs.vww import VWW
+from repro_torch.models import lm
 from repro_torch.models import mobilenetv2 as mnv2
 
 
@@ -74,22 +90,77 @@ def serve_mobilenet(args) -> np.ndarray:
     return preds
 
 
+def serve_lm(args) -> np.ndarray:
+    """Batched prefill, then a greedy decode loop; returns the generated
+    tokens, (batch, gen)."""
+    dev = resolve_device(args.device)
+    cfg = (registry.get_smoke(args.arch) if args.smoke
+           else registry.get(args.arch))
+    cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl,
+                              block_impl=args.block_impl)
+    print(f"[serve] arch={cfg.name} params={cfg.param_count():,} "
+          f"attn={cfg.attn_impl} ffn={cfg.block_impl} on {device_label(dev)}")
+    params = lm.init_params(cfg, args.seed, dev)
+    max_len = args.prompt_len + args.gen
+    rng = np.random.default_rng(args.seed)
+    prompts = torch.from_numpy(
+        rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))).to(dev)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = lm.prefill(params, cfg, prompts, max_len=max_len)
+    tok = logits[:, :cfg.vocab].argmax(dim=-1)
+    out_tokens = [tok]
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for i in range(args.gen - 1):
+        logits, cache = lm.decode_step(params, cfg, cache, tok,
+                                       args.prompt_len + i)
+        tok = logits[:, :cfg.vocab].argmax(dim=-1)
+        out_tokens.append(tok)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+    gen = torch.stack(out_tokens, dim=1).cpu().numpy()
+    steps = args.gen - 1
+    rate = (f"{args.batch * steps / t_decode:.1f} tok/s"
+            if steps and t_decode > 0 else "no decode steps")
+    print(f"[serve] prefill {args.batch}x{args.prompt_len} tok in "
+          f"{t_prefill * 1e3:.3f} ms; {steps} decode steps of batch "
+          f"{args.batch} in {t_decode * 1e3:.3f} ms ({rate})")
+    print(f"[serve] sample continuation (seq 0): {gen[0][:12].tolist()}")
+    return gen
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=registry.ARCH_NAMES,
+                    help="LM prefill + greedy decode with seeded weights")
     ap.add_argument("--mobilenet", action="store_true",
                     help="batch-size throughput sweep of the int8 "
                          "MobileNetV2-VWW network through the fused DSC "
                          "kernel")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the arch's reduced config")
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--attn-impl", choices=("reference", "fused", "kernel"),
+                    default="kernel")
+    ap.add_argument("--block-impl", choices=("reference", "fused"),
+                    default="fused")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
-    if not args.mobilenet:
-        ap.error("--mobilenet is required: the LM path is not ported yet "
-                 "(ROADMAP.md Queue 1, LM path)")
     if args.batch < 1:
         ap.error("--batch must be >= 1")
-    return serve_mobilenet(args)
+    if args.mobilenet:
+        return serve_mobilenet(args)
+    if not args.arch:
+        ap.error("--arch or --mobilenet is required")
+    if args.prompt_len < 1 or args.gen < 1:
+        ap.error("--prompt-len and --gen must be >= 1")
+    return serve_lm(args)
 
 
 if __name__ == "__main__":

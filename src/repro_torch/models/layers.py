@@ -1,0 +1,342 @@
+"""Shared transformer layer machinery: norms, RoPE, attention (port of
+``repro.models.layers``, single device).
+
+Attention ships in three disciplines, mirroring the DSC block:
+
+* ``reference`` — materializes the (Tq, Tk) score matrix (the layer-by-layer
+  baseline; the attention analogue of storing F1/F2).
+* ``fused``     — chunked online softmax over K/V blocks: the score matrix
+  exists only one (Tq, block) tile at a time. Plain torch.
+* ``kernel``    — ``kernels/ops.mha``: the hand-written CUDA flash-attention
+  kernel on a CUDA tensor, its plain version on a CPU tensor. The
+  counterpart of the reference's ``pallas``.
+
+Decode attention is plain torch in every discipline, as in the reference.
+Weights are plain nested dicts of tensors. The reference's sequence-sharded
+decode branch and its sharding constraints belong to the multi-device
+runtime and are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops as kops
+
+Params = Dict[str, Any]
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x, scale, *, eps: float = 1e-6, zero_centered: bool = False):
+    """RMSNorm in f32 (gemma-style optional (1+scale) parameterization)."""
+    x32 = x.float()
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    s = (1.0 + scale.float()) if zero_centered else scale.float()
+    return (y * s).to(x.dtype)
+
+
+def init_rms(d: int, device=None) -> torch.Tensor:
+    return torch.ones((d,), dtype=torch.float32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (with partial-rotary fraction, glm4-style)
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, fraction: float, theta: float):
+    rot = int(head_dim * fraction) // 2 * 2
+    inv = 1.0 / (theta ** (np.arange(0, rot, 2, dtype=np.float32) / rot))
+    return rot, torch.from_numpy(np.asarray(inv, np.float32))  # (rot/2,)
+
+
+def apply_rope(x, positions, *, head_dim: int, fraction: float, theta: float):
+    """x: (..., T, H, hd); positions: (..., T) integer."""
+    rot, inv = rope_freqs(head_dim, fraction, theta)
+    if rot == 0:
+        return x
+    ang = positions[..., None].float() * inv.to(x.device)   # (..., T, rot/2)
+    cos = torch.cos(ang)[..., None, :]                       # (..., T, 1, rot/2)
+    sin = torch.sin(ang)[..., None, :]
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1, x2 = xr[..., : rot // 2], xr[..., rot // 2:]        # half-split layout
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([out.to(x.dtype), xp], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Attention math (three disciplines)
+# ---------------------------------------------------------------------------
+
+
+def _mask(q_pos, k_pos, *, causal, window, kv_len=None):
+    m = torch.ones(torch.broadcast_shapes(q_pos.shape, k_pos.shape),
+                   dtype=torch.bool, device=q_pos.device)
+    if causal:
+        m &= q_pos >= k_pos
+    if window is not None:
+        m &= (q_pos - k_pos) < window
+    if kv_len is not None:
+        m &= k_pos < kv_len
+    return m
+
+
+def repeat_kv(k, n_heads: int):
+    """(B, T, Hkv, d) -> (B, T, H, d) by repeating each kv head."""
+    hkv = k.shape[2]
+    if hkv == n_heads:
+        return k
+    return torch.repeat_interleave(k, n_heads // hkv, dim=2)
+
+
+def attention_reference(q, k, v, q_pos, k_pos, *, causal, window,
+                        softcap, sm_scale, kv_len=None):
+    """(B, Tq, H, d) x (B, Tk, Hkv, d); materializes (Tq, Tk) scores."""
+    h = q.shape[2]
+    k = repeat_kv(k, h)
+    v = repeat_kv(v, h)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * sm_scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    m = _mask(q_pos[:, None], k_pos[None, :], causal=causal, window=window,
+              kv_len=kv_len)
+    s = torch.where(m[None, None], s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(m.any(-1)[None, None, :, None], p, torch.zeros_like(p))
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return o.to(q.dtype)
+
+
+def attention_fused(q, k, v, q_pos, k_pos, *, causal, window, softcap,
+                    sm_scale, block_k: int = 1024, kv_len=None):
+    """Chunked online-softmax attention (zero-buffer scores), plain torch.
+
+    Loops over K/V blocks; the running (max, denom, acc) triple is the
+    output-stationary accumulator. q is pre-scaled in its own dtype, scores
+    run in f32, and the P tile is cast back to the compute dtype for the PV
+    product, as in the reference.
+    """
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    k = repeat_kv(k, h)
+    v = repeat_kv(v, h)
+    block_k = min(block_k, tk)
+    qs = (q.float() * sm_scale).to(q.dtype).float()
+    m_run = torch.full((b, h, tq, 1), -1e30, dtype=torch.float32,
+                       device=q.device)
+    l_run = torch.zeros((b, h, tq, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, tq, d), dtype=torch.float32, device=q.device)
+    for lo in range(0, tk, block_k):
+        hi = min(lo + block_k, tk)
+        s = torch.einsum("bqhd,bkhd->bhqk", qs, k[:, lo:hi].float())
+        if softcap is not None:
+            s = softcap * torch.tanh(s / softcap)
+        msk = _mask(q_pos[:, None], k_pos[None, lo:hi], causal=causal,
+                    window=window, kv_len=kv_len)
+        s = torch.where(msk[None, None], s, torch.full_like(s, -1e30))
+        m_new = torch.maximum(m_run, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m_run - m_new)
+        l_run = alpha * l_run + p.sum(dim=-1, keepdim=True)
+        pv = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(),
+                          v[:, lo:hi].float())
+        acc = alpha * acc + pv
+        m_run = m_new
+    denom = torch.where(l_run == 0.0, torch.ones_like(l_run), l_run)
+    return (acc / denom).transpose(1, 2).to(q.dtype)
+
+
+def attention_kernel(q, k, v, q_pos, k_pos, *, causal, window, softcap,
+                     sm_scale, kv_len=None):
+    """The flash-attention kernel (contiguous positions only — the
+    prefill path)."""
+    del q_pos, k_pos, kv_len
+    return kops.mha(q, k, v, n_kv_heads=k.shape[2], causal=causal,
+                    window=window, softcap=softcap, sm_scale=sm_scale)
+
+
+ATTN_IMPLS = {
+    "reference": attention_reference,
+    "fused": attention_fused,
+    "kernel": attention_kernel,
+}
+
+
+# ---------------------------------------------------------------------------
+# Attention layer (projections + rope + cache)
+# ---------------------------------------------------------------------------
+
+
+def init_attention(gen: torch.Generator, cfg: ArchConfig, device=None,
+                   dtype=torch.float32) -> Params:
+    """Seeded random q/k/v/o weights (normal, fan-in scaled), drawn in f32
+    from ``gen`` and stored in ``dtype``. Pad heads are zero."""
+    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    hp = cfg.n_heads_padded
+    scale = d ** -0.5
+
+    def normal(shape, s):
+        w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=device) * s
+        return w.to(dtype)
+
+    def padh(w, axis):
+        """Zero-init padded heads, inserted PER KV GROUP so every real
+        q-head keeps its original kv assignment: head = kv*g_pad + i with
+        i < g real, i >= g zero."""
+        if hp == h:
+            return w
+        if (hp - h) % hkv:
+            raise ValueError("head_pad must be a multiple of kv heads")
+        g, gp = h // hkv, hp // hkv
+        shape = list(w.shape)
+        shape[axis:axis + 1] = [hkv, g]
+        wg = w.reshape(shape)
+        pad_shape = list(wg.shape)
+        pad_shape[axis + 1] = gp - g
+        wg = torch.cat([wg, torch.zeros(pad_shape, dtype=w.dtype,
+                                        device=w.device)], dim=axis + 1)
+        shape[axis:axis + 2] = [hp]
+        return wg.reshape(shape)
+
+    p = {
+        "wq": padh(normal((d, h, hd), scale), 1),
+        "wk": normal((d, hkv, hd), scale),
+        "wv": normal((d, hkv, hd), scale),
+        "wo": padh(normal((h, hd, d), (h * hd) ** -0.5), 0),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((hp, hd), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((hkv, hd), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((hkv, hd), dtype=dtype, device=device)
+    if cfg.qk_norm:
+        p["q_norm"] = init_rms(hd, device)
+        p["k_norm"] = init_rms(hd, device)
+    return p
+
+
+def _project_qkv(x, p, cfg: ArchConfig, positions):
+    dt = x.dtype
+    q = torch.einsum("btd,dhk->bthk", x, p["wq"].to(dt))
+    k = torch.einsum("btd,dhk->bthk", x, p["wk"].to(dt))
+    v = torch.einsum("btd,dhk->bthk", x, p["wv"].to(dt))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], eps=cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], eps=cfg.norm_eps)
+    hd = cfg.head_dim_
+    q = apply_rope(q, positions, head_dim=hd, fraction=cfg.rope_fraction,
+                   theta=cfg.rope_theta)
+    k = apply_rope(k, positions, head_dim=hd, fraction=cfg.rope_fraction,
+                   theta=cfg.rope_theta)
+    return q, k, v
+
+
+def _attend(q, k, v, positions, cfg: ArchConfig, *, local: bool):
+    window = cfg.window if local else None
+    impl = ATTN_IMPLS[cfg.attn_impl]
+    kw = dict(causal=cfg.causal, window=window, softcap=cfg.attn_softcap,
+              sm_scale=cfg.head_dim_ ** -0.5)
+    if cfg.attn_impl == "fused":
+        kw["block_k"] = cfg.attn_chunk
+    return impl(q, k, v, positions[0], positions[0], **kw)
+
+
+def attention_layer(x, p, cfg: ArchConfig, *, local: bool,
+                    positions=None) -> torch.Tensor:
+    """Full-sequence attention (prefill without cache)."""
+    b, t, _ = x.shape
+    if positions is None:
+        positions = torch.arange(t, device=x.device)[None].repeat(b, 1)
+    q, k, v = _project_qkv(x, p, cfg, positions)
+    o = _attend(q, k, v, positions, cfg, local=local)
+    return torch.einsum("bthk,hkd->btd", o, p["wo"].to(x.dtype))
+
+
+# --- KV cache ---------------------------------------------------------------
+
+
+def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, *, local: bool,
+                  dtype=torch.bfloat16, device=None) -> Params:
+    size = min(max_len, cfg.window) if (local and cfg.window) else max_len
+    shape = (batch, size, cfg.n_kv_heads, cfg.head_dim_)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attention_prefill(x, p, cfg: ArchConfig, cache, *, local: bool):
+    """Prefill: full-sequence attention + populate the KV cache in place.
+
+    Local layers keep only the trailing ``window`` keys (ring buffer); the
+    write offset is chosen so subsequent decode steps continue the ring.
+    """
+    b, t, _ = x.shape
+    positions = torch.arange(t, device=x.device)[None].repeat(b, 1)
+    q, k, v = _project_qkv(x, p, cfg, positions)
+    o = _attend(q, k, v, positions, cfg, local=local)
+    size = cache["k"].shape[1]
+    if t >= size:   # keep last `size` keys, aligned to the ring phase
+        start = t - size
+        # ring slot of absolute position p is p % size; roll so slot matches
+        shift = (t - size) % size
+        cache["k"].copy_(torch.roll(k[:, start:], shift, dims=1))
+        cache["v"].copy_(torch.roll(v[:, start:], shift, dims=1))
+    else:
+        cache["k"][:, :t] = k
+        cache["v"][:, :t] = v
+    out = torch.einsum("bthk,hkd->btd", o, p["wo"].to(x.dtype))
+    return out, cache
+
+
+def attention_decode(x, p, cfg: ArchConfig, cache, pos: int, *, local: bool):
+    """One-token decode step against the cache, which it updates in place.
+
+    ``pos``: the absolute position of the incoming token. The cache is a
+    ring buffer for local layers (slot = pos % size) and a flat buffer for
+    global layers. Scores and the PV product accumulate in f32 from the
+    cache's dtype, as the reference's ``preferred_element_type`` does.
+    """
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
+    q, k, v = _project_qkv(x, p, cfg, positions)
+    ck, cv = cache["k"], cache["v"]
+    size = ck.shape[1]
+    is_ring = bool(local and cfg.window and size == cfg.window)
+    slot = (pos % size) if is_ring else pos
+    ck[:, slot:slot + 1] = k.to(ck.dtype)
+    cv[:, slot:slot + 1] = v.to(cv.dtype)
+    # Positions of cached slots.
+    idx = torch.arange(size, device=x.device)
+    if is_ring:
+        # slot i holds the most recent position p' <= pos with p' % size == i
+        k_pos = pos - torch.remainder(pos - idx, size)
+    else:
+        k_pos = idx
+    hd = cfg.head_dim_
+    valid = (k_pos >= 0) & (k_pos <= pos)
+    if local and cfg.window:
+        valid &= (pos - k_pos) < cfg.window
+    kr = repeat_kv(ck, cfg.n_heads_padded)
+    vr = repeat_kv(cv, cfg.n_heads_padded)
+    qf = (q.float() * hd ** -0.5).to(kr.dtype)              # (B, 1, H, hd)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf.float(), kr.float())
+    if cfg.attn_softcap is not None:
+        s = cfg.attn_softcap * torch.tanh(s / cfg.attn_softcap)
+    s = torch.where(valid[None, None, None, :], s, torch.full_like(s, -1e30))
+    pattn = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", pattn.to(vr.dtype).float(), vr.float())
+    o = o.to(x.dtype)
+    out = torch.einsum("bthk,hkd->btd", o, p["wo"].to(x.dtype))
+    return out, cache

@@ -175,3 +175,67 @@ def test_fused_dsc_cuda_matches_plain():
         # the public wrapper sends CUDA tensors to the kernel
         assert torch.equal(ops.dsc_block(x, *ts, **st), want)
         assert fused_dsc.LAUNCHES == before + 2
+
+
+def _close(got, want, tol):
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if got.dtype == torch.bfloat16:
+        # the whole output too: two bf16 roundings differ by ~4e-3 at most,
+        # so a structured fault under the elementwise 2e-2 shows here
+        diff = (got.float() - want.float()).norm()
+        assert float(diff / want.float().norm()) < 1e-2
+
+
+@pytest.mark.gpu
+def test_flash_attention_cuda_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flash-attention kernel has no "
+                    "CPU mode")
+    from repro_torch.kernels import flash_attention
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = [  # (b, tq, tk, h, hkv, d, causal, window, softcap)
+        (4, 128, 128, 1, 1, 64, True, None, None),
+        (4, 256, 256, 1, 1, 64, True, None, 50.0),
+        (4, 128, 384, 1, 1, 64, False, None, None),
+        (4, 256, 256, 1, 1, 64, True, 64, None),
+        (4, 100, 100, 1, 1, 32, True, None, None),
+        (4, 64, 160, 1, 1, 32, False, 48, None),
+        (2, 509, 509, 16, 8, 256, True, 64, 50.0),
+        (1, 8, 3, 2, 1, 32, False, 1, None),      # rows with no valid key
+    ]
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for b, tq, tk, h, hkv, d, causal, window, softcap in cases:
+            q, k, v = (torch.randn((b, t, n, d), generator=gen, device="cuda")
+                       .to(dtype) for t, n in ((tq, h), (tk, hkv), (tk, hkv)))
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            before = flash_attention.LAUNCHES
+            got = ops.mha(q, k, v, n_kv_heads=hkv, **kw)
+            torch.cuda.synchronize()
+            assert flash_attention.LAUNCHES == before + 1
+            _close(got, ref.mha_ref(q, k, v, **kw), tol)
+
+
+@pytest.mark.gpu
+def test_fused_ffn_cuda_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the fused-FFN kernel has no CPU mode")
+    from repro_torch.kernels import fused_ffn
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = [(64, 128, 512, "silu", True), (32, 64, 192, "gelu", True),
+             (128, 128, 384, "relu_sq", True), (64, 96, 256, "gelu", False),
+             (1, 256, 1040, "relu", True), (77, 3584, 1024, "gelu", True)]
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for t, d, f, act, gated in cases:
+            x = torch.randn((t, d), generator=gen, device="cuda").to(dtype)
+            # 0.05 as tests/test_kernels.py, fan-in scaled at wide shapes so
+            # that outputs stay O(1) and 2e-5 bounds the f32 sum order
+            wg, wu, wd = (
+                (torch.randn(s, generator=gen, device="cuda")
+                 * min(0.05, s[0] ** -0.5)).to(dtype)
+                for s in ((d, f), (d, f), (f, d)))
+            wg = wg if gated else None
+            before = fused_ffn.LAUNCHES
+            got = ops.ffn(x, wg, wu, wd, act=act)
+            torch.cuda.synchronize()
+            assert fused_ffn.LAUNCHES == before + 1
+            _close(got, ref.fused_ffn_ref(x, wg, wu, wd, act=act), tol)

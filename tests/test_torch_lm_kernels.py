@@ -1,0 +1,274 @@
+"""The port's LM kernels' plain versions and the modules around them, held
+against the JAX package on the CPU.
+
+Inputs come from seeded numpy and go to both packages. The JAX Pallas
+kernels run in interpret mode. Tolerances: 2e-5 in float32 (the
+tests/test_kernels.py sweeps' own), 2e-2 in bfloat16 (rounding of the
+output and of P / h to bf16 at different points).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import fused_ffn as jffn
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention
+from repro.kernels.fused_ffn import fused_ffn_pallas
+from repro.models import layers as jL
+from repro_torch.core import fused_ffn as tffn
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import fused_ffn as tff
+from repro_torch.kernels import ops, ref
+from repro_torch.models import layers as tL
+
+F32_TOL = 2e-5
+BF16_TOL = 2e-2
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values as a JAX array and a torch tensor of ``dtype``."""
+    jdt, tdt = DTYPES[dtype]
+    j = jnp.asarray(a, jnp.float32).astype(jdt)
+    return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(tdt)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+# --- flash attention ----------------------------------------------------------
+
+# tests/test_kernels.py flash matrix, plus gemma2's head dim with softcap 50
+# and a sliding window, and a ragged, prime Tq.
+FLASH_CASES = [
+    (128, 128, 64, True, None, None),
+    (256, 256, 64, True, None, 50.0),
+    (128, 384, 64, False, None, None),
+    (256, 256, 64, True, 64, None),
+    (100, 100, 32, True, None, None),
+    (64, 160, 32, False, 48, None),
+    (80, 80, 256, True, 16, 50.0),
+    (67, 67, 256, True, None, 50.0),
+]
+
+
+@pytest.mark.parametrize("tq,tk,d,causal,window,softcap", FLASH_CASES)
+def test_attention_ref_matches_jax_flash_and_oracle(tq, tk, d, causal,
+                                                    window, softcap):
+    rng = np.random.default_rng(tq * 7 + d)
+    arrays = [rng.standard_normal((2, t, d)).astype(np.float32)
+              for t in (tq, tk, tk)]
+    (jq, q), (jk, k), (jv, v) = (_pair(a, "float32") for a in arrays)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = ref.attention_ref(q, k, v, **kw)
+    np.testing.assert_allclose(_np(got), _np(jref.attention_ref(jq, jk, jv,
+                                                                **kw)),
+                               atol=F32_TOL, rtol=F32_TOL)
+    pallas = flash_attention(jq, jk, jv, interpret=True, **kw)
+    np.testing.assert_allclose(_np(got), _np(pallas), atol=F32_TOL,
+                               rtol=F32_TOL)
+    # the CPU dispatch is the plain version and counts no launch
+    before = tfa.LAUNCHES
+    assert torch.equal(ops.attention(q, k, v, **kw), got)
+    assert tfa.LAUNCHES == before
+
+
+@pytest.mark.parametrize("case", [FLASH_CASES[1], FLASH_CASES[6]])
+def test_attention_ref_bf16_matches_jax_flash(case):
+    tq, tk, d, causal, window, softcap = case
+    rng = np.random.default_rng(5)
+    arrays = [rng.standard_normal((2, t, d)).astype(np.float32)
+              for t in (tq, tk, tk)]
+    (jq, q), (jk, k), (jv, v) = (_pair(a, "bfloat16") for a in arrays)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = ref.attention_ref(q, k, v, **kw)
+    assert got.dtype == torch.bfloat16
+    pallas = flash_attention(jq, jk, jv, interpret=True, **kw)
+    np.testing.assert_allclose(_np(got), _np(pallas), atol=BF16_TOL,
+                               rtol=BF16_TOL)
+
+
+@pytest.mark.parametrize("b,t,h,hkv,d,window,softcap", [
+    (2, 64, 8, 2, 32, None, None),       # tests/test_kernels.py GQA case
+    (1, 40, 4, 2, 256, 16, 50.0),        # gemma2 head dim, window, softcap
+])
+def test_mha_cpu_matches_jax_gqa(b, t, h, hkv, d, window, softcap):
+    rng = np.random.default_rng(3)
+    (jq, q) = _pair(rng.standard_normal((b, t, h, d)), "float32")
+    (jk, k) = _pair(rng.standard_normal((b, t, hkv, d)), "float32")
+    (jv, v) = _pair(rng.standard_normal((b, t, hkv, d)), "float32")
+    kw = dict(causal=True, window=window, softcap=softcap)
+    got = ops.mha(q, k, v, n_kv_heads=hkv, **kw)
+    want = jops.mha(jq, jk, jv, n_kv_heads=hkv, interpret=True, **kw)
+    assert got.shape == (b, t, h, d)
+    np.testing.assert_allclose(_np(got), _np(want), atol=F32_TOL,
+                               rtol=F32_TOL)
+    with pytest.raises(ValueError, match="n_kv_heads"):
+        ops.mha(q, k, v, n_kv_heads=hkv * 2, **kw)
+
+
+def test_fully_masked_rows_give_zeros_in_the_port():
+    # The Pallas kernel returns mean(V) for a row with no valid key; its
+    # oracle returns zeros, and the port follows the oracle.
+    rng = np.random.default_rng(9)
+    (jq, q) = _pair(rng.standard_normal((1, 8, 32)), "float32")
+    (jk, k) = _pair(rng.standard_normal((1, 3, 32)), "float32")
+    (jv, v) = _pair(rng.standard_normal((1, 3, 32)), "float32")
+    got = ref.attention_ref(q, k, v, causal=False, window=1)
+    assert torch.count_nonzero(got[0, 3:]) == 0
+    np.testing.assert_allclose(
+        _np(got), _np(jref.attention_ref(jq, jk, jv, causal=False, window=1)),
+        atol=F32_TOL)
+
+
+# --- fused FFN ---------------------------------------------------------------
+
+
+def _ffn_arrays(rng, t, d, f, gated=True):
+    x = rng.standard_normal((t, d))
+    ws = [rng.standard_normal(s) * 0.05 for s in ((d, f), (d, f), (f, d))]
+    if not gated:
+        ws[0] = None
+    return x, ws
+
+
+@pytest.mark.parametrize("t,d,f", [(64, 128, 512), (32, 64, 192),
+                                   (128, 128, 384)])
+@pytest.mark.parametrize("act", ["silu", "gelu", "relu_sq"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_ffn_ref_matches_jax_pallas(t, d, f, act, dtype):
+    rng = np.random.default_rng(t + d + f)
+    x, (wg, wu, wd) = _ffn_arrays(rng, t, d, f)
+    (jx, tx), (jg, tg), (ju, tu), (jd, td) = (_pair(a, dtype)
+                                              for a in (x, wg, wu, wd))
+    got = ref.fused_ffn_ref(tx, tg, tu, td, act=act)
+    assert got.dtype == tx.dtype
+    want = fused_ffn_pallas(jx, jg, ju, jd, act=act, block_t=32, block_f=128,
+                            interpret=True)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+    np.testing.assert_allclose(
+        _np(got), _np(jref.fused_ffn_ref(jx, jg, ju, jd, act=act)),
+        atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+def test_fused_ffn_ref_ungated_matches_jax(act):
+    rng = np.random.default_rng(1)
+    x, (_, wu, wd) = _ffn_arrays(rng, 64, 96, 256, gated=False)
+    (jx, tx), (ju, tu), (jd, td) = (_pair(a, "float32") for a in (x, wu, wd))
+    got = ref.fused_ffn_ref(tx, None, tu, td, act=act)
+    want = fused_ffn_pallas(jx, None, ju, jd, act=act, block_t=32,
+                            block_f=64, interpret=True)
+    np.testing.assert_allclose(_np(got), _np(want), atol=F32_TOL)
+    before = tff.LAUNCHES
+    assert torch.equal(ops.ffn(tx, None, tu, td, act=act), got)
+    assert tff.LAUNCHES == before
+
+
+@pytest.mark.parametrize("impl", ["reference", "fused"])
+@pytest.mark.parametrize("gated", [True, False])
+def test_ffn_apply_matches_jax(impl, gated):
+    rng = np.random.default_rng(4)
+    x, (wg, wu, wd) = _ffn_arrays(rng, 24, 64, 192, gated=gated)
+    x = x.reshape(2, 12, 64)
+    names = ["w_gate", "w_up", "w_down"] if gated else ["w_up", "w_down"]
+    arrays = [wg, wu, wd] if gated else [wu, wd]
+    jx, tx = _pair(x, "float32")
+    jp, tp = {}, {}
+    for n, a in zip(names, arrays):
+        jp[n], tp[n] = _pair(a, "float32")
+    act = "gelu"
+    got = tffn.ffn_apply(tx, tp, gated=gated, act_name=act, impl=impl,
+                         chunk=64)
+    want = jffn.ffn_apply(jx, jp, gated=gated, act_name=act, impl=impl,
+                          chunk=64)
+    assert got.shape == (2, 12, 64)
+    np.testing.assert_allclose(_np(got), _np(want), atol=F32_TOL,
+                               rtol=F32_TOL)
+    # the chunked dataflow and the materialized one agree
+    other = tffn.ffn_apply(tx, tp, gated=gated, act_name=act,
+                           impl="fused" if impl == "reference" else "reference",
+                           chunk=64)
+    np.testing.assert_allclose(_np(got), _np(other), atol=F32_TOL,
+                               rtol=F32_TOL)
+
+
+def test_ffn_apply_rejects_unknown_impl():
+    x = torch.zeros(2, 16)
+    p = {"w_up": torch.zeros(16, 32), "w_down": torch.zeros(32, 16)}
+    with pytest.raises(ValueError, match="unknown FFN impl"):
+        tffn.ffn_apply(x, p, gated=False, act_name="gelu", impl="pallas")
+
+
+def test_ffn_plan_covers_d_ff_and_keeps_h_in_shared_memory():
+    for t, dtype in [(1, torch.bfloat16), (4, torch.bfloat16),
+                     (2048, torch.bfloat16), (1000, torch.bfloat16),
+                     (64, torch.float32), (17, torch.float32)]:
+        for d_ff in (14336, 512, 192, 16):
+            pl = tff.plan(t, d_ff, dtype, n_sm=132)
+            item = 2 if dtype == torch.bfloat16 else 4
+            assert pl.fr % tff.CHUNK == 0
+            assert pl.splits * pl.fr >= d_ff > (pl.splits - 1) * pl.fr
+            assert pl.block_t * pl.fr * item <= tff.H_SMEM_BYTES
+            assert pl.t_pad >= t and pl.t_pad % pl.block_t == 0
+    # the gemma2-9b path shapes: prefill and decode
+    assert tff.plan(2048, 14336, torch.bfloat16, 132) == tff.Plan(64, 1024, 14,
+                                                                  2048)
+    assert tff.plan(4, 14336, torch.bfloat16, 132) == tff.Plan(16, 128, 112,
+                                                               16)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors_without_counting():
+    x = torch.zeros(4, 16)
+    w = torch.zeros(16, 32)
+    before = (tff.LAUNCHES, tfa.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tff.fused_ffn_cuda(x, w, w, w.T.contiguous(), act="gelu")
+    q = torch.zeros(1, 8, 2, 32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tfa.flash_attention_cuda(q, q, q)
+    assert (tff.LAUNCHES, tfa.LAUNCHES) == before
+
+
+# --- norms and RoPE ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("zero_centered", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_matches_jax(zero_centered, dtype):
+    rng = np.random.default_rng(2)
+    jx, tx = _pair(rng.standard_normal((2, 5, 64)) * 3, dtype)
+    scale = (rng.standard_normal(64) * 0.1).astype(np.float32)
+    got = tL.rms_norm(tx, torch.from_numpy(scale), eps=1e-6,
+                      zero_centered=zero_centered)
+    want = jL.rms_norm(jx, jnp.asarray(scale), eps=1e-6,
+                       zero_centered=zero_centered)
+    assert got.dtype == tx.dtype
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("fraction", [1.0, 0.5])
+def test_apply_rope_matches_jax(fraction):
+    rng = np.random.default_rng(6)
+    jx, tx = _pair(rng.standard_normal((2, 7, 4, 32)), "float32")
+    pos = np.stack([np.arange(7), np.arange(7) + 30]).astype(np.int32)
+    got = tL.apply_rope(tx, torch.from_numpy(pos), head_dim=32,
+                        fraction=fraction, theta=10_000.0)
+    want = jL.apply_rope(jx, jnp.asarray(pos), head_dim=32, fraction=fraction,
+                         theta=10_000.0)
+    np.testing.assert_allclose(_np(got), _np(want), atol=F32_TOL,
+                               rtol=F32_TOL)
+    rot, inv = tL.rope_freqs(32, fraction, 10_000.0)
+    jrot, jinv = jL.rope_freqs(32, fraction, 10_000.0)
+    assert rot == jrot
+    np.testing.assert_array_equal(inv.numpy(), np.asarray(jinv))

@@ -1,6 +1,7 @@
 """The port's serving entry point, its no-silent-CPU contract, and its
 independence from JAX and from the reference package."""
 
+import dataclasses
 import os
 import pkgutil
 import subprocess
@@ -12,7 +13,9 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.configs import registry as treg
 from repro_torch.launch import serve
+from repro_torch.models import lm as tlm
 from repro_torch.models import mobilenetv2 as tmnv2
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -34,8 +37,45 @@ def test_serve_without_device_flag_needs_a_card():
         pytest.skip("a card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         serve.main(["--mobilenet", "--batch", "2"])
-    with pytest.raises(SystemExit):
-        serve.main(["--batch", "2", "--device", "cpu"])   # LM path: not ported
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        serve.main(["--arch", "gemma2-9b", "--smoke", "--batch", "2"])
+    with pytest.raises(SystemExit):   # neither --arch nor --mobilenet
+        serve.main(["--batch", "2", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--batch", "2", "--device", "cpu"],
+    ["--arch", "qwen3-14b", "--smoke", "--device", "cpu"],   # not ported
+    ["--arch", "gemma2-9b", "--smoke", "--gen", "0", "--device", "cpu"],
+    ["--arch", "gemma2-9b", "--attn-impl", "pallas", "--device", "cpu"],
+])
+def test_serve_usage_errors(argv, capsys):
+    with pytest.raises(SystemExit) as exc:
+        serve.main(argv)
+    assert exc.value.code == 2
+    assert "usage" in capsys.readouterr().err
+
+
+def test_serve_lm_cpu_returns_greedy_loop_tokens(capsys):
+    argv = ["--arch", "gemma2-9b", "--smoke", "--batch", "2",
+            "--prompt-len", "20", "--gen", "5", "--device", "cpu"]
+    gen = serve.main(argv)
+    assert gen.shape == (2, 5)
+    cfg = dataclasses.replace(treg.get_smoke("gemma2-9b"), attn_impl="kernel",
+                              block_impl="fused")
+    params = tlm.init_params(cfg, 0, device="cpu")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (2, 20))
+    logits, cache = tlm.prefill(params, cfg, prompts, max_len=25)
+    tok = logits[:, :cfg.vocab].argmax(-1)
+    want = [tok]
+    for i in range(4):
+        logits, cache = tlm.decode_step(params, cfg, cache, tok, 20 + i)
+        tok = logits[:, :cfg.vocab].argmax(-1)
+        want.append(tok)
+    np.testing.assert_array_equal(gen, torch.stack(want, 1).numpy())
+    out = capsys.readouterr().out
+    assert "arch=gemma2-9b-smoke" in out and "tok/s" in out
+    assert "attn=kernel ffn=fused" in out   # the defaults run both kernels
 
 
 _BLOCKED_IMPORT = r"""
@@ -60,7 +100,11 @@ def test_port_imports_with_jax_and_repro_blocked():
     names = ["repro_torch"] + [
         m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                               "repro_torch.")]
-    assert "repro_torch.kernels.fused_dsc" in names
+    for name in ("repro_torch.kernels.fused_dsc",
+                 "repro_torch.kernels.flash_attention",
+                 "repro_torch.kernels.fused_ffn", "repro_torch.models.lm",
+                 "repro_torch.launch.serve"):
+        assert name in names
     env = dict(os.environ, PYTHONPATH=str(SRC))
     res = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT, *names],
                          capture_output=True, text=True, env=env, timeout=300)
