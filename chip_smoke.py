@@ -10,7 +10,9 @@ hand-written flash-attention and fused-FFN kernels. Phases:
 
 1. the card's name and power limit (nvidia-smi); no CUDA device -> fail;
 2. build every kernel from src/repro_torch/kernels/csrc (one nvcc each, all
-   at once) and print the build time and the ptxas register/smem lines;
+   at once) and print the build time and the ptxas register/smem lines,
+   with each flash kernel's registers and spill line on one line; the bf16
+   flash launcher's shared memory must equal ``flash_attention.plan``;
 3. DSC kernel vs plain version: ``fused_dsc_cuda`` must equal
    ``ref.fused_dsc_ref`` on the card and on the CPU (``torch.equal``) for the
    seven blocks of the 80x80 network at batch 64, the eight ragged shapes of
@@ -26,7 +28,9 @@ hand-written flash-attention and fused-FFN kernels. Phases:
    the device time torch.profiler records;
 8. LM kernels vs plain versions: flash attention on the tests/test_kernels.py
    matrix (card and CPU) and at gemma2-9b's shapes (d 256, GQA 16/8,
-   softcap 50, windows 4096, none and 64, ragged P); the fused FFN on the
+   softcap 50, windows 4096, none and 64, ragged P) and at the wgmma
+   kernel's edges (d 16 and 128, Tk < 64, Tq 65 / Tk 129 with window 48,
+   B 2 P 509 unwindowed); the fused FFN on the
    tests/test_kernels.py sweep (card and CPU) and at gemma2-9b's widths,
    T 1, 4, 77, 1000, 2048; f32 within 2e-5, bf16 within 2e-2 elementwise
    and 1e-2 in relative norm;
@@ -43,7 +47,9 @@ hand-written flash-attention and fused-FFN kernels. Phases:
 11. each LM kernel at its path shapes: CUDA-graph time, plain-version time,
    the bound max(flops / 989 TFLOP/s, bytes / 3.35 TB/s), and for flash
    attention the time of ``torch.compile(flex_attention)`` on the same
-   inputs (the library yardstick, held to the plain version);
+   inputs (the library yardstick, held to the plain version); flash again at
+   a measurement shape off the serve path, B 1, P 4096 (the longest prompt
+   a local layer's window covers), where the products bound it;
 12. where a prefill's and a decode step's time goes (torch.profiler).
 
 The last stdout line is {"ok": true, "device": {...}}; the line before it is
@@ -165,6 +171,32 @@ def phase_build():
             say(f"[build]   {line}")
     for name in ("fused_dsc", "flash_attention", "fused_ffn"):
         check(name in built, f"{name} was not built")
+    for kernel, regs, spills in ptxas_kernels(built["flash_attention"].ptxas):
+        say(f"[build] flash_attention {kernel}: {regs} registers, {spills}")
+    for d in range(16, 257, 16):
+        check(flash_attention.kernel_smem_bytes(d) == flash_attention.plan(
+            1, 64, 64, 1, 1, d).smem_bytes,
+            f"flash bf16 shared memory at d {d} != flash_attention.plan")
+
+
+def ptxas_kernels(lines):
+    """(kernel, registers, spill line) for each entry function that ptxas
+    compiled, from its "-v" lines."""
+    out, name, spills = [], None, "no spill line"
+    for line in lines:
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            name = next((k for k in ("flash_wgmma_kernel", "flash_f32_kernel")
+                         if k in mangled), mangled)
+            tmpl = mangled.split(name, 1)[-1]
+            name += f"<{tmpl[3:tmpl.index('E')]}>" if tmpl[:3] == "ILi" else ""
+            spills = "no spill line"
+        elif "spill" in line:
+            spills = line
+        elif "Used" in line and "registers" in line and name is not None:
+            out.append((name, int(line.split("Used")[1].split()[0]), spills))
+            name = None
+    return out
 
 
 def run_kernel_vs_plain(name, x_cpu, qp_cpu, device, tile_rows=4) -> None:
@@ -389,6 +421,19 @@ F32_TOL, BF16_TOL = 2e-5, 2e-2   # tests/test_kernels.py's tolerances
 # structured fault that hides under the elementwise 2e-2 cannot pass.
 BF16_NORM_TOL = 1e-2
 NO_FFN_LIBRARY = "no single PyTorch call computes the gated FFN"
+# (b, tq, tk, h, hkv, d, causal, window, softcap): tests/test_torch_kernels.py
+# test_flash_attention_cuda_matches_plain's cases for the wgmma kernel's edges
+FLASH_EDGE_CASES = [
+    (1, 64, 64, 2, 1, 16, True, None, None),
+    (2, 130, 130, 4, 2, 128, True, None, 50.0),
+    (2, 40, 40, 2, 2, 64, True, None, None),
+    (1, 48, 20, 2, 1, 64, False, None, None),
+    (2, 65, 129, 2, 1, 64, False, 48, None),
+    (2, 509, 509, 16, 8, 256, True, None, 50.0),
+]
+# A flash measurement shape beside the path: the longest prompt that a
+# local layer's window covers, where the products bound the kernel.
+LONG_BATCH, LONG_PROMPT = 1, 4096
 
 
 def gemma(**over):
@@ -458,6 +503,20 @@ def phase_lm_kernel_vs_plain(device):
             got = ops.mha(q, k, v, n_kv_heads=8, **kw)
             _, rel = close(got, ref.mha_ref(q, k, v, **kw), tol,
                            f"flash gemma P{p_len} window {window} {dtype}")
+            worst = max(worst, rel) if dtype == torch.bfloat16 else worst
+            n += 1
+    # the wgmma kernel's edges: d 16 and 128 (d padded to TMA boxes), Tk < 64,
+    # ragged boxes on both edges (Tq 65, Tk 129, window 48), P 509 unwindowed
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for b, tq, tk, h, hkv, d, causal, window, softcap in FLASH_EDGE_CASES:
+            q = rand(gen, (b, tq, h, d), dtype, device=device)
+            k, v = (rand(gen, (b, tk, hkv, d), dtype, device=device)
+                    for _ in range(2))
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            got = ops.mha(q, k, v, n_kv_heads=hkv, **kw)
+            _, rel = close(got, ref.mha_ref(q, k, v, **kw), tol,
+                           f"flash edge B{b} {tq}x{tk} H{h}/{hkv} d{d} {kw} "
+                           f"{dtype}")
             worst = max(worst, rel) if dtype == torch.bfloat16 else worst
             n += 1
     say(f"[lm-kernel] flash_attention == attention_ref on {n} shapes "
@@ -833,6 +892,23 @@ def phase_lm_kernel_times(device, launches):
         *flash_bound(b, p, h, hkv, hd), library_ms, library_note,
         {"shape": [b, p, h, hkv, hd], "launches_per_prefill": cfg.n_layers,
          "launches_per_decode_step": 0})]
+    del q, k, v, want
+    # the measurement shape: checked, then timed beside the plain version
+    # and the library; the serve path never launches it (0 launches)
+    lb, lp = LONG_BATCH, LONG_PROMPT
+    q = rand(gen, (lb, lp, h, hd), bf16, device=device)
+    k, v = (rand(gen, (lb, lp, hkv, hd), bf16, device=device) for _ in range(2))
+    want = plain()
+    err_rel = close(kern(), want, BF16_TOL, f"flash at B{lb} P{lp}")
+    ms, plain_ms = time_ms(kern, 10, 3), time_ms(plain, 3, 2)
+    library_ms, library_note = flex_attention_library(
+        q, k, v, want, window=cfg.window, softcap=cfg.attn_softcap)
+    rows.append(lm_row(
+        f"flash_attention[measurement B{lb} P{lp} H{h}/{hkv} d{hd}]",
+        FLASH_SOURCE, FLASH_REPLACES, 0, err_rel, ms, plain_ms,
+        *flash_bound(lb, lp, h, hkv, hd), library_ms, library_note,
+        {"shape": [lb, lp, h, hkv, hd], "launches_per_prefill": 0,
+         "launches_per_decode_step": 0}))
     del q, k, v, want
     d, f = cfg.d_model, cfg.d_ff
     wg, wu = (rand(gen, (d, f), bf16, d ** -0.5, device) for _ in range(2))

@@ -36,7 +36,7 @@ class Built:
     path: Path
     lib: ctypes.CDLL
     seconds: float            # 0.0 when the library was already built
-    ptxas: List[str]          # the "-Xptxas -v" register/shared-memory lines
+    ptxas: List[str]          # the "-Xptxas -v" register/spill/smem lines
 
 
 _LOADED: Dict[str, Built] = {}
@@ -71,7 +71,8 @@ def _library_path(name: str) -> Path:
 
 
 def _ptxas_lines(log: str) -> List[str]:
-    return [ln.strip() for ln in log.splitlines() if "ptxas" in ln]
+    return [ln.strip() for ln in log.splitlines()
+            if "ptxas" in ln or "spill" in ln]
 
 
 def _start(name: str, nvcc: str) -> Optional[subprocess.Popen]:

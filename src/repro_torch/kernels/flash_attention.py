@@ -8,6 +8,12 @@ layout and reads KV head ``h // (H // Hkv)`` for query head ``h``, so GQA
 needs no repeated K and V. The plain PyTorch versions are
 ``ref.attention_ref`` and ``ref.mha_ref``.
 
+The bf16 kernel runs one warpgroup per 64-row query tile: ``wgmma`` for
+both products with S, P and O in registers, Q and a 2-stage K/V ring loaded
+by TMA. ``plan`` states in Python what one bf16 launch is handed (tiles,
+padded head dim, ring depth, shared memory, grid and block order), so the
+CPU tests can check it.
+
 ``LAUNCHES`` counts the kernel launches this wrapper made, so a run can show
 that its main path went through the kernel.
 """
@@ -15,7 +21,8 @@ that its main path went through the kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import dataclasses
+from typing import Iterator, Optional, Tuple
 
 import torch
 
@@ -30,6 +37,48 @@ _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_vp] * 4 + [_int] * 10 + [_float] * 2 + [_vp]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+# The bf16 kernel's constants (csrc/flash_attention.cu: kBQ, kBK, kBox,
+# kStages) and the card's opt-in shared-memory limit per block.
+BLOCK_Q = 64
+BLOCK_K = 64
+BOX = 64            # bf16 columns per TMA box: one 128-byte swizzle row
+STAGES = 2
+SMEM_LIMIT = 232_448
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """What one bf16 launch is handed."""
+
+    block_q: int            # query rows per block (one warpgroup)
+    block_k: int            # keys per K/V tile
+    stages: int             # depth of the K/V ring
+    d_pad: int              # head dim padded to a multiple of BOX
+    smem_bytes: int         # dynamic shared memory per block
+    grid: Tuple[int, int]   # (query tiles, B * H)
+    causal: bool            # blocks start from the last query tile
+
+    def tiles(self) -> Iterator[Tuple[int, int]]:
+        """(query tile, b * h) of each block in launch order, as the kernel
+        maps ``blockIdx``: under a causal mask the last query tiles, which
+        see the most keys, come first."""
+        n_q, n_bh = self.grid
+        for lin in range(n_q * n_bh):
+            qt = lin // n_bh
+            yield (n_q - 1 - qt if self.causal else qt), lin % n_bh
+
+
+def plan(b: int, tq: int, tk: int, h: int, hkv: int, d: int,
+         causal: bool = True) -> Plan:
+    """The bf16 launch for q (b, tq, h, d) and k, v (b, tk, hkv, d). Tk and
+    Hkv do not change it: each block walks its own K/V tiles."""
+    d_pad = -(-d // BOX) * BOX
+    tile = BLOCK_Q * d_pad * 2
+    smem = 1024 + tile * (1 + 2 * STAGES) + 8 * (STAGES + 1)
+    return Plan(block_q=BLOCK_Q, block_k=BLOCK_K, stages=STAGES, d_pad=d_pad,
+                smem_bytes=smem, grid=(-(-tq // BLOCK_Q), b * h),
+                causal=causal)
+
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention").lib
@@ -38,7 +87,14 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_launch.restype = _int
         lib.flash_attention_error_string.argtypes = [_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
+        lib.flash_attention_bf16_smem_bytes.argtypes = [_int]
+        lib.flash_attention_bf16_smem_bytes.restype = _int
     return lib
+
+
+def kernel_smem_bytes(d: int) -> int:
+    """The shared memory the built bf16 kernel asks for at head dim d."""
+    return _lib().flash_attention_bf16_smem_bytes(d)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -56,8 +112,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns: (B, Tq, H, d) in q's dtype, on q's device and current stream.
     """
     global LAUNCHES
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {q.device}")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q, k, v must be (B, T, H, d), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}")
@@ -67,7 +121,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tk, hkv = k.shape[1], k.shape[2]
     if hkv < 1 or h % hkv:
         raise ValueError(f"{h} query heads are not a multiple of {hkv} KV heads")
-    if d % 16 or d > 256:
+    if d % 16 or not 0 < d <= 256:
         raise ValueError(f"head dim must be a multiple of 16 and <= 256, got {d}")
     if tq < 1 or tk < 1:
         raise ValueError(f"empty sequence: Tq {tq}, Tk {tk}")
@@ -79,6 +133,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_tensor(q, "q", q.dtype, (b, tq, h, d), dev)
     check_tensor(k, "k", q.dtype, (b, tk, hkv, d), dev)
     check_tensor(v, "v", q.dtype, (b, tk, hkv, d), dev)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {dev}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must start on 16-byte boundaries (TMA)")
     scale = float(sm_scale if sm_scale is not None else d ** -0.5)
     out = torch.empty_like(q)
     lib = _lib()

@@ -202,7 +202,18 @@ def test_flash_attention_cuda_matches_plain():
         (4, 64, 160, 1, 1, 32, False, 48, None),
         (2, 509, 509, 16, 8, 256, True, 64, 50.0),
         (1, 8, 3, 2, 1, 32, False, 1, None),      # rows with no valid key
+        # the wgmma kernel's edges: d 16 and 128 (d padded to 64-column TMA
+        # boxes), Tk < 64, ragged boxes on both edges, P 509 unwindowed
+        (1, 64, 64, 2, 1, 16, True, None, None),
+        (2, 130, 130, 4, 2, 128, True, None, 50.0),
+        (2, 40, 40, 2, 2, 64, True, None, None),
+        (1, 48, 20, 2, 1, 64, False, None, None),
+        (2, 65, 129, 2, 1, 64, False, 48, None),
+        (2, 509, 509, 16, 8, 256, True, None, 50.0),
     ]
+    for d in range(16, 257, 16):   # what the launcher asks for is the plan
+        assert flash_attention.kernel_smem_bytes(d) == flash_attention.plan(
+            1, 64, 64, 1, 1, d).smem_bytes
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
         for b, tq, tk, h, hkv, d, causal, window, softcap in cases:
             q, k, v = (torch.randn((b, t, n, d), generator=gen, device="cuda")
