@@ -11,8 +11,11 @@ hand-written flash-attention and fused-FFN kernels. Phases:
 1. the card's name and power limit (nvidia-smi); no CUDA device -> fail;
 2. build every kernel from src/repro_torch/kernels/csrc (one nvcc each, all
    at once) and print the build time and the ptxas register/smem lines,
-   with each flash kernel's registers and spill line on one line; the bf16
-   flash launcher's shared memory must equal ``flash_attention.plan``;
+   with each flash and FFN kernel's registers and spill line on one line;
+   the bf16 flash launcher's shared memory must equal
+   ``flash_attention.plan``, and the FFN launcher's plan (cluster, columns,
+   chunk, ring stages, d_ff groups, shared memory, grid, workspace) must
+   equal ``fused_ffn.plan`` at the serve path's and the checks' shapes;
 3. DSC kernel vs plain version: ``fused_dsc_cuda`` must equal
    ``ref.fused_dsc_ref`` on the card and on the CPU (``torch.equal``) for the
    seven blocks of the 80x80 network at batch 64, the eight ragged shapes of
@@ -49,7 +52,13 @@ hand-written flash-attention and fused-FFN kernels. Phases:
    attention the time of ``torch.compile(flex_attention)`` on the same
    inputs (the library yardstick, held to the plain version); flash again at
    a measurement shape off the serve path, B 1, P 4096 (the longest prompt
-   a local layer's window covers), where the products bound it;
+   a local layer's window covers), where the products bound it; for the
+   FFN, its workspace (none at prefill, the d_ff groups' f32 partials at
+   decode, < 1% of the weight bytes), the device kernels one call runs
+   (one at prefill; the kernel and the groups' sum at decode), and the time
+   of the unfused bf16 chain (three ``torch.matmul`` with h in device
+   memory: a yardstick the port never calls, not one call of the same
+   function);
 12. where a prefill's and a decode step's time goes (torch.profiler).
 
 The last stdout line is {"ok": true, "device": {...}}; the line before it is
@@ -61,6 +70,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -171,12 +181,34 @@ def phase_build():
             say(f"[build]   {line}")
     for name in ("fused_dsc", "flash_attention", "fused_ffn"):
         check(name in built, f"{name} was not built")
-    for kernel, regs, spills in ptxas_kernels(built["flash_attention"].ptxas):
-        say(f"[build] flash_attention {kernel}: {regs} registers, {spills}")
+    for lib in ("flash_attention", "fused_ffn"):
+        for kernel, regs, spills in ptxas_kernels(built[lib].ptxas):
+            say(f"[build] {lib} {kernel}: {regs} registers, {spills}")
     for d in range(16, 257, 16):
         check(flash_attention.kernel_smem_bytes(d) == flash_attention.plan(
             1, 64, 64, 1, 1, d).smem_bytes,
             f"flash bf16 shared memory at d {d} != flash_attention.plan")
+    # the FFN launcher's plan (shared memory, grid, workspace, ...) is
+    # fused_ffn.plan, at the serve path's shapes and the checks' shapes
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    cfg = registry.get("gemma2-9b")
+    shapes = [(t, cfg.d_model, cfg.d_ff) for t in (1, 4, 77, 1000, 2048)]
+    shapes += [(t, d, f) for t, d, f, *_ in FFN_CASES]
+    for dtype in (torch.bfloat16, torch.float32):
+        for t, d, f in shapes:
+            pl = fused_ffn.plan(t, d, f, dtype, n_sm)
+            check(fused_ffn.kernel_plan(t, d, f, dtype, n_sm) == pl.as_tuple(),
+                  f"ffn launcher plan != fused_ffn.plan at T {t}, d {d}, "
+                  f"d_ff {f}, {dtype}")
+    for t in (2048, 4):
+        pl = fused_ffn.plan(t, cfg.d_model, cfg.d_ff, torch.bfloat16, n_sm)
+        resident = fused_ffn.max_active_clusters(t, cfg.d_model, cfg.d_ff, n_sm)
+        say(f"[build] fused_ffn plan gemma2-9b T {t}: cluster {pl.cluster}, "
+            f"{pl.cols} columns per block, chunk {pl.chunk}, {pl.stages} ring "
+            f"stages, {pl.groups} d_ff groups, grid {pl.grid}, shared memory "
+            f"{pl.smem_bytes} B, workspace {pl.ws_bytes} B; == the launcher's; "
+            f"{resident} clusters resident at once, so "
+            f"{-(-pl.grid[1] * pl.grid[2] // resident)} waves")
 
 
 def ptxas_kernels(lines):
@@ -186,10 +218,16 @@ def ptxas_kernels(lines):
     for line in lines:
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            name = next((k for k in ("flash_wgmma_kernel", "flash_f32_kernel")
-                         if k in mangled), mangled)
+            name = next((k for k in ("flash_wgmma_kernel", "flash_f32_kernel",
+                                     "ffn_wgmma_kernel", "ffn_f32_kernel",
+                                     "reduce_kernel") if k in mangled), mangled)
             tmpl = mangled.split(name, 1)[-1]
-            name += f"<{tmpl[3:tmpl.index('E')]}>" if tmpl[:3] == "ILi" else ""
+            if tmpl[:3] == "ILi":     # an int template argument
+                name += f"<{tmpl[3:tmpl.index('E')]}>"
+            elif tmpl[:2] == "I1":    # a type: reduce_kernel<bf16 / float>
+                name += "<bf16>" if "bfloat16" in tmpl else ""
+            elif tmpl[:3] == "IfE":
+                name += "<float>"
             spills = "no spill line"
         elif "spill" in line:
             spills = line
@@ -431,6 +469,12 @@ FLASH_EDGE_CASES = [
     (2, 65, 129, 2, 1, 64, False, 48, None),
     (2, 509, 509, 16, 8, 256, True, None, 50.0),
 ]
+# (t, d, f, act, gated): the tests/test_kernels.py FFN sweep, an ungated
+# and a relu case
+FFN_CASES = [(t, d, f, act, True) for t, d, f in
+             ((64, 128, 512), (32, 64, 192), (128, 128, 384))
+             for act in ("silu", "gelu", "relu_sq")]
+FFN_CASES += [(64, 96, 256, "gelu", False), (48, 128, 256, "relu", True)]
 # A flash measurement shape beside the path: the longest prompt that a
 # local layer's window covers, where the products bound the kernel.
 LONG_BATCH, LONG_PROMPT = 1, 4096
@@ -524,12 +568,8 @@ def phase_lm_kernel_vs_plain(device):
         f"bf16 relative norm {worst:.6e})")
 
     n, worst = 0, 0.0
-    acts = ("silu", "gelu", "relu_sq")
-    ffn_cases = [(t, d, f, act, True) for t, d, f in
-                 ((64, 128, 512), (32, 64, 192), (128, 128, 384)) for act in acts]
-    ffn_cases += [(64, 96, 256, "gelu", False), (48, 128, 256, "relu", True)]
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-        for t, d, f, act, gated in ffn_cases:
+        for t, d, f, act, gated in FFN_CASES:
             x = rand(gen, (t, d), dtype, device=device)
             wg, wu, wd = (rand(gen, s, dtype, 0.05, device)
                           for s in ((d, f), (d, f), (f, d)))
@@ -913,12 +953,32 @@ def phase_lm_kernel_times(device, launches):
     d, f = cfg.d_model, cfg.d_ff
     wg, wu = (rand(gen, (d, f), bf16, d ** -0.5, device) for _ in range(2))
     wd = rand(gen, (f, d), bf16, f ** -0.5, device)
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    weight_bytes = 3 * d * f * 2
     for phase, t, n_launch in (("prefill", b * p, launches["ffn_prefill"]),
                                ("decode", b, launches["ffn_decode"])):
         x = rand(gen, (t, d), bf16, device=device)
         kern = lambda: ops.ffn(x, wg, wu, wd, act=cfg.act)
         plain = lambda: ref.fused_ffn_ref(x, wg, wu, wd, act=cfg.act)
         err_rel = close(kern(), plain(), BF16_TOL, f"ffn at T {t}")
+        pl = fused_ffn.plan(t, d, f, bf16, n_sm)
+        # prefill: y is all it writes (no workspace, one kernel); decode: the
+        # groups' f32 partials, summed in order by a second kernel
+        want_ws = pl.ws_bytes == 0 if phase == "prefill" else (
+            0 < pl.ws_bytes < 0.01 * weight_bytes)
+        check(want_ws, f"ffn {phase}: workspace {pl.ws_bytes} B of "
+              f"{weight_bytes} B of weights")
+        launches, kernels = launches_per_call(kern)   # 0: not recorded
+        check(launches in (0, 1 if pl.groups == 1 else 2),
+              f"ffn {phase}: {launches} kernel launches per call ({kernels})")
+        chain_ms = time_ms(lambda: unfused_chain(x, wg, wu, wd), 10, 3)
+        say(f"[time] fused_ffn {phase} T{t}: workspace {pl.ws_bytes} B "
+            f"({pl.ws_bytes / weight_bytes:.4%} of the weights), {pl.groups} "
+            f"d_ff groups, kernel launches per call "
+            f"{launches or 'not measured'} {kernels}; the unfused "
+            f"bf16 chain (three torch.matmul, h in device memory; a "
+            f"yardstick the port never calls, not one call of the same "
+            f"function) {chain_ms:.6f} ms")
         rows.append(lm_row(
             f"fused_ffn[{phase} T{t} d{d} d_ff{f} gelu]", FFN_SOURCE,
             FFN_REPLACES, n_launch, err_rel, time_ms(kern, 10, 3),
@@ -926,8 +986,47 @@ def phase_lm_kernel_times(device, launches):
             {"shape": [t, d, f], "launches_per_prefill":
              cfg.n_layers if phase == "prefill" else 0,
              "launches_per_decode_step": cfg.n_layers if phase == "decode"
-             else 0}))
+             else 0, "ws_bytes": pl.ws_bytes, "groups": pl.groups,
+             "launches_per_call": launches, "unfused_chain_ms": chain_ms}))
     return rows
+
+
+def unfused_chain(x, wg, wu, wd):
+    """The gated FFN as cuBLAS computes it unfused: three bf16 matmuls
+    with the (T, d_ff) g, u and h in device memory, the gelu mix between."""
+    g = torch.matmul(x, wg)
+    h = torch.nn.functional.gelu(g, approximate="tanh") * torch.matmul(x, wu)
+    return torch.matmul(h, wd)
+
+
+def launches_per_call(fn, reps=3):
+    """(kernel launches per ``fn()`` call, the device kernels' names) from
+    torch.profiler over ``reps`` calls. Launches are the CUDA runtime's
+    launch calls on the host side of the trace; (0, []) if it recorded
+    none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    launches = sum(e.device_type == DeviceType.CPU
+                   and e.name.startswith("cudaLaunchKernel") for e in events)
+    names = {kernel_name(e.name) for e in events
+             if e.device_type == DeviceType.CUDA and "emcpy" not in e.name
+             and "emset" not in e.name}
+    return launches / reps, sorted(names)
+
+
+def kernel_name(name: str) -> str:
+    """A device kernel's name without its namespace, template arguments and
+    parameters."""
+    m = re.search(r"(\w+)[<(]", name.replace("(anonymous namespace)::", ""))
+    return m.group(1) if m else name
 
 
 def phase_lm_profile(params, device, reps=3):

@@ -76,6 +76,8 @@
 #include <cstdint>
 #include <cstdio>
 
+#include "hopper.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -83,9 +85,6 @@ using bf16 = __nv_bfloat16;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e30f;
-constexpr size_t kDefaultSmem = 48 * 1024;
-constexpr int kEncodeFailed = -1;   // cuTensorMapEncodeTiled refused a map
-int g_last_encode_result = 0;       // its CUresult, for the error string
 
 struct Params {
   const void* q;
@@ -97,23 +96,6 @@ struct Params {
   int has_softcap;
   float softcap, sm_scale;
 };
-
-// Raise the block's dynamic shared memory above 48 KB once per device and
-// size, so a launch inside a CUDA-graph capture makes no attribute call.
-template <typename K>
-cudaError_t opt_in(K kernel, size_t smem, int* opted_in) {
-  if (smem <= kDefaultSmem) return cudaSuccess;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 0 || dev >= 64 || static_cast<int>(smem) > opted_in[dev]) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    if (dev >= 0 && dev < 64) opted_in[dev] = static_cast<int>(smem);
-  }
-  return cudaSuccess;
-}
 
 // ===========================================================================
 // f32: scalar path
@@ -315,76 +297,6 @@ __host__ __device__ constexpr uint32_t tile_bytes(int dp) {
 __host__ __device__ constexpr size_t bf16_smem_bytes(int dp) {
   return 1024 + static_cast<size_t>(tile_bytes(dp)) * (1 + 2 * kStages)
        + 8 * (kStages + 1);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// One (64, 1, 64, 1) box of a (d, heads, T, B) tensor map into shared
-// memory; completion is counted on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int col, int head,
-                                         int row, int batch) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-         "r"(col), "r"(head), "r"(row), "r"(batch)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor for the 128-byte swizzle: start address,
-// leading and stride byte offsets (each >> 4), layout type 1 (B128).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-       | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16
-       | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32
-       | static_cast<uint64_t>(1) << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keep the compiler from moving reads of accumulator registers above the
-// wgmma wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // The wgmma instructions, operand lists spelled out (PTX names every
@@ -627,21 +539,21 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wgmma_kernel(
     mbar_expect_tx(bar, 2 * kTile);
 #pragma unroll
     for (int ch = 0; ch < kChunks; ++ch) {
-      tma_load(sk + ch * kChunk, &tm_k, bar, ch * kBox, kvh, k0, b);
-      tma_load(sk + kTile + ch * kChunk, &tm_v, bar, ch * kBox, kvh, k0, b);
+      tma_load_4d(sk + ch * kChunk, &tm_k, bar, ch * kBox, kvh, k0, b);
+      tma_load_4d(sk + kTile + ch * kChunk, &tm_v, bar, ch * kBox, kvh, k0, b);
     }
   };
 
   if (tid == 0) {
     for (int i = 0; i <= kStages; ++i) mbar_init(bars + 8 * i, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
   if (tid == 0) {
     mbar_expect_tx(bars, kTile);
 #pragma unroll
     for (int ch = 0; ch < kChunks; ++ch)
-      tma_load(s_q + ch * kChunk, &tm_q, bars, ch * kBox, h, q0, b);
+      tma_load_4d(s_q + ch * kChunk, &tm_q, bars, ch * kBox, h, q0, b);
     for (int t = 0; t < kStages - 1 && t < n_tiles; ++t) load_kv(t);
   }
 
@@ -774,35 +686,6 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wgmma_kernel(
             pack_bf16(o[4 * j + 2 * i] * inv[i], o[4 * j + 2 * i + 1] * inv[i]);
     }
   }
-}
-
-// cuTensorMapEncodeTiled, found through the runtime so that nothing links
-// libcuda.
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-cudaError_t encode_tiled(EncodeTiled* fn) {
-  static EncodeTiled cached = nullptr;
-  if (cached == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess) return e;
-    if (found != cudaDriverEntryPointSuccess || ptr == nullptr)
-      return cudaErrorNotSupported;
-    cached = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  *fn = cached;
-  return cudaSuccess;
 }
 
 // The (B, T, heads, d) bf16 tensor at `ptr` as a 4-d map (d, heads, T, B)

@@ -2,10 +2,20 @@
 
 Port of ``repro.kernels.fused_ffn.fused_ffn_pallas``: y = act(x @ Wg) *
 (x @ Wu) @ Wd (or ungated act(x @ Wu) @ Wd) in one launch, the (T, d_ff)
-intermediate kept in shared memory. The kernel splits d_ff over thread
-blocks; each writes an f32 partial output to a workspace this wrapper
-allocates, and a second kernel of the same launch sums the partials in a
-fixed order. The plain PyTorch version is ``ref.fused_ffn_ref``.
+intermediate kept on chip. The plain PyTorch version is
+``ref.fused_ffn_ref``.
+
+The bf16 kernel is output-stationary over a thread-block cluster: the C
+blocks of a cluster split the (64-row, d_model) f32 accumulator by d_model
+columns, each computes its 64-column piece of every d_ff chunk of h with
+``wgmma``, the pieces are all-gathered in distributed shared memory, and
+each block multiplies the whole chunk by its columns of Wd. At prefill it
+writes nothing but y; at decode the plan splits d_ff into groups whose f32
+partials a second pass sums in a fixed order. The f32 kernel (tests and the
+f32 checks) is scalar and splits d_ff over blocks with f32 partials.
+``plan`` states in Python what one launch is handed, as the launcher
+computes it (``fused_ffn_plan`` in the source), so the CPU tests can check
+it.
 
 ``LAUNCHES`` counts the launches this wrapper made, so a run can show that
 its main path went through the kernel.
@@ -15,7 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional
+from typing import Iterator, Optional, Tuple
 
 import torch
 
@@ -24,41 +34,125 @@ from repro_torch.kernels.fused_dsc import check_tensor
 
 LAUNCHES = 0
 
-_vp, _int = ctypes.c_void_p, ctypes.c_int
-# 6 pointers, 7 ints, the stream: the order of fused_ffn_launch's
-# parameters in csrc/fused_ffn.cu.
-_ARGTYPES = [_vp] * 6 + [_int] * 7 + [_vp]
+_vp, _int, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# x, wg, wu, wd, ws, ws_bytes, y, 6 ints, the stream: the order of
+# fused_ffn_launch's parameters in csrc/fused_ffn.cu.
+_ARGTYPES = [_vp] * 5 + [_ll, _vp] + [_int] * 6 + [_vp]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ACT_CODES = {"silu": 0, "gelu": 1, "relu_sq": 2, "relu": 3}
-CHUNK = 128                 # d_ff columns per expansion sub-block
-H_SMEM_BYTES = 128 * 1024   # shared memory for the block's h tile
+
+# The bf16 kernel's constants (csrc/fused_ffn.cu) and the card's opt-in
+# shared-memory limit per block.
+BLOCK_T = 64             # token rows per block (wgmma M)
+PIECE = 64               # d_ff columns of h per block per chunk
+WIDTHS = (32, 64, 128, 224)   # output columns per consumer warpgroup
+MAX_CLUSTER = 8          # the portable cluster size
+EXP_K = 128              # d_model columns per expansion ring stage
+PROJ_K = 32              # d_ff rows per projection ring stage
+MAX_STAGES = 6
+SMEM_LIMIT = 232_448
+# TMA boxes: x (64 rows x 64 columns), Wg / Wu (EXP_K rows x 32 columns),
+# and one block's h piece (64 x PIECE)
+X_BOX, W_BOX, H_PIECE = 64 * 64 * 2, EXP_K * 32 * 2, 64 * PIECE * 2
+BAR_BYTES = 8 * (2 * MAX_STAGES + 2)
+# f32 kernel: 16 token rows per block, 128-column sub-blocks, an h tile of
+# at most 128 KB of shared memory.
+F32_BLOCK_T, F32_COLS, F32_K, F32_H_BYTES = 16, 128, 32, 128 * 1024
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """How one launch tiles its work."""
+    """What one launch is handed (``fused_ffn_plan`` in the source)."""
 
-    block_t: int     # token rows per thread block
-    fr: int          # d_ff columns per split (a multiple of CHUNK)
-    splits: int      # thread blocks along d_ff = workspace slices
-    t_pad: int       # T rounded up to block_t
+    block_t: int            # token rows per block
+    cluster: int            # blocks per cluster along d_model (bf16)
+    cols: int               # d_model columns per block (bf16: 2 warpgroups)
+    chunk: int              # d_ff columns per chunk (bf16) or split (f32)
+    stages: int             # ring depth (bf16; 0 for f32)
+    groups: int             # d_ff groups (bf16) or splits (f32)
+    per_group: int          # chunks per group (f32: 128-column sub-blocks)
+    chunks: int             # chunks over d_ff
+    smem_bytes: int         # dynamic shared memory per block
+    grid: Tuple[int, int, int]
+    ws_bytes: int           # f32 partials in device memory; 0: none
+
+    def as_tuple(self) -> Tuple[int, ...]:
+        """The 13 numbers ``fused_ffn_plan`` reports, in its order."""
+        return (self.block_t, self.cluster, self.cols, self.chunk,
+                self.stages, self.groups, self.per_group, self.chunks,
+                self.smem_bytes, *self.grid, self.ws_bytes)
+
+    @property
+    def acc_registers(self) -> int:
+        """f32 registers per consumer thread for the accumulators (bf16):
+        the output slice (64 x cols / 2 per warpgroup) and [g | u]."""
+        return self.cols // 4 + 32
+
+    def tiles(self) -> Iterator[Tuple[int, int, int, Tuple[int, int],
+                                      Tuple[int, int]]]:
+        """bf16: (rank, token tile, group, d_ff range, d_model range) of
+        each block; the ranges are half-open and may pass d_ff or d_model
+        (zero-filled loads, masked stores)."""
+        for group in range(self.groups):
+            f0 = group * self.per_group * self.chunk
+            f1 = min(self.chunks, (group + 1) * self.per_group) * self.chunk
+            for tile in range(self.grid[1]):
+                for rank in range(self.cluster):
+                    yield (rank, tile, group, (f0, f1),
+                           (rank * self.cols, (rank + 1) * self.cols))
 
 
-def plan(t: int, d_ff: int, dtype: torch.dtype, n_sm: int) -> Plan:
-    """Token tile and d_ff split for T tokens: as few splits as the h tile
-    allows, but at least two thread blocks per SM where d_ff has room."""
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def pick_width(d: int) -> Tuple[int, int]:
+    """(cluster, columns per warpgroup) for d_model ``d`` in bf16: the
+    smallest cluster whose blocks cover d with one of ``WIDTHS``."""
+    c = 1
+    while c <= MAX_CLUSTER:
+        need = _cdiv(d, 2 * c)
+        for nw in WIDTHS:
+            if need <= nw:
+                return c, nw
+        c *= 2
+    raise ValueError(f"bf16 fused FFN covers d_model up to "
+                     f"{2 * MAX_CLUSTER * WIDTHS[-1]}, got {d}")
+
+
+def plan(t: int, d: int, d_ff: int, dtype: torch.dtype, n_sm: int) -> Plan:
+    """The launch for x (t, d), Wg/Wu (d, d_ff), Wd (d_ff, d) on a card of
+    ``n_sm`` SMs."""
     if dtype == torch.bfloat16:
-        block_t = 16 if t <= 16 else 64
-    else:
-        block_t = 16
-    item = 2 if dtype == torch.bfloat16 else 4
-    max_chunks = H_SMEM_BYTES // (block_t * item * CHUNK)
-    chunks = -(-d_ff // CHUNK)
-    tiles = -(-t // block_t)
-    splits = min(chunks, max(-(-chunks // max_chunks), -(-2 * n_sm // tiles)))
-    per = -(-chunks // splits)
-    return Plan(block_t=block_t, fr=per * CHUNK, splits=-(-chunks // per),
-                t_pad=tiles * block_t)
+        tiles = _cdiv(t, BLOCK_T)
+        c, nw = pick_width(d)
+        chunk = c * PIECE
+        chunks = _cdiv(d_ff, chunk)
+        want = n_sm // (tiles * c)   # d_ff groups that would fill the card
+        per = chunks if want <= 1 else _cdiv(chunks, min(want, chunks))
+        groups = _cdiv(chunks, per)
+        slot = max(EXP_K // 64 * X_BOX + 4 * W_BOX, PROJ_K * 2 * nw * 2)
+        h_bytes = c * H_PIECE
+        stages = min(MAX_STAGES,
+                     (SMEM_LIMIT - 1024 - h_bytes - BAR_BYTES) // slot)
+        return Plan(block_t=BLOCK_T, cluster=c, cols=2 * nw, chunk=chunk,
+                    stages=stages, groups=groups, per_group=per,
+                    chunks=chunks,
+                    smem_bytes=1024 + stages * slot + h_bytes + BAR_BYTES,
+                    grid=(c, tiles, groups),
+                    ws_bytes=4 * groups * t * d if groups > 1 else 0)
+    tiles = _cdiv(t, F32_BLOCK_T)
+    chunks = _cdiv(d_ff, F32_COLS)
+    max_chunks = F32_H_BYTES // (F32_BLOCK_T * 4 * F32_COLS)
+    splits = min(chunks, max(_cdiv(chunks, max_chunks), _cdiv(2 * n_sm, tiles)))
+    per = _cdiv(chunks, splits)
+    groups = _cdiv(chunks, per)
+    return Plan(block_t=F32_BLOCK_T, cluster=1, cols=d, chunk=per * F32_COLS,
+                stages=0, groups=groups, per_group=per, chunks=chunks,
+                smem_bytes=4 * (F32_BLOCK_T * per * F32_COLS
+                                + F32_BLOCK_T * F32_K),
+                grid=(tiles, groups, 1),
+                ws_bytes=4 * groups * tiles * F32_BLOCK_T * d)
 
 
 def _lib() -> ctypes.CDLL:
@@ -68,7 +162,30 @@ def _lib() -> ctypes.CDLL:
         lib.fused_ffn_launch.restype = _int
         lib.fused_ffn_error_string.argtypes = [_int]
         lib.fused_ffn_error_string.restype = ctypes.c_char_p
+        lib.fused_ffn_plan.argtypes = [_int] * 5 + [ctypes.POINTER(_ll)]
+        lib.fused_ffn_plan.restype = _int
+        lib.fused_ffn_max_clusters.argtypes = [_int] * 4
+        lib.fused_ffn_max_clusters.restype = _int
     return lib
+
+
+def kernel_plan(t: int, d: int, d_ff: int, dtype: torch.dtype,
+                n_sm: int) -> Tuple[int, ...]:
+    """The 13 numbers the built launcher computes for this launch."""
+    out = (_ll * 13)()
+    err = _lib().fused_ffn_plan(_DTYPES[dtype], t, d, d_ff, n_sm, out)
+    if err != 0:
+        raise ValueError(f"fused_ffn_plan refused T {t}, d {d}, d_ff {d_ff}")
+    return tuple(out)
+
+
+def max_active_clusters(t: int, d: int, d_ff: int, n_sm: int) -> int:
+    """How many clusters of the bf16 launch can be resident at once on the
+    current card (``cudaOccupancyMaxActiveClusters``)."""
+    n = _lib().fused_ffn_max_clusters(t, d, d_ff, n_sm)
+    if n < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed ({-n})")
+    return n
 
 
 def fused_ffn_cuda(x: torch.Tensor, w_gate: Optional[torch.Tensor],
@@ -79,13 +196,12 @@ def fused_ffn_cuda(x: torch.Tensor, w_gate: Optional[torch.Tensor],
     Args:
       x: (T, d_model). w_gate, w_up: (d_model, d_ff); w_gate None for an
         ungated FFN. w_down: (d_ff, d_model). All contiguous, one dtype,
-        float32 or bfloat16; d_model and d_ff multiples of 16.
+        float32 or bfloat16, starting on 16-byte boundaries; d_model and
+        d_ff multiples of 16; bf16 d_model at most 3584.
       act: silu | gelu (tanh) | relu_sq | relu.
     Returns: (T, d_model) in x's dtype, on x's device and current stream.
     """
     global LAUNCHES
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_ffn_cuda needs CUDA tensors, got {x.device}")
     if x.dim() != 2 or w_up.dim() != 2:
         raise ValueError(f"x must be (T, d_model) and w_up (d_model, d_ff), "
                          f"got {tuple(x.shape)}, {tuple(w_up.shape)}")
@@ -104,17 +220,26 @@ def fused_ffn_cuda(x: torch.Tensor, w_gate: Optional[torch.Tensor],
         check_tensor(w_gate, "w_gate", x.dtype, (d, f), dev)
     check_tensor(w_up, "w_up", x.dtype, (d, f), dev)
     check_tensor(w_down, "w_down", x.dtype, (f, d), dev)
-    pl = plan(t, f, x.dtype, torch.cuda.get_device_properties(dev)
-              .multi_processor_count)
-    ws = torch.empty((pl.splits, pl.t_pad, d), dtype=torch.float32, device=dev)
+    if any(w.data_ptr() % 16 for w in (x, w_gate, w_up, w_down)
+           if w is not None):
+        raise ValueError("x and the weights must start on 16-byte boundaries "
+                         "(TMA)")
+    if x.dtype == torch.bfloat16:
+        pick_width(d)   # raises past the widest cluster
+    if dev.type != "cuda":
+        raise ValueError(f"fused_ffn_cuda needs CUDA tensors, got {dev}")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    pl = plan(t, d, f, x.dtype, n_sm)
+    ws = torch.empty(pl.ws_bytes // 4, dtype=torch.float32, device=dev)
     out = torch.empty_like(x)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_ffn_launch(
             x.data_ptr(), None if w_gate is None else w_gate.data_ptr(),
-            w_up.data_ptr(), w_down.data_ptr(), ws.data_ptr(), out.data_ptr(),
-            _DTYPES[x.dtype], t, d, f, ACT_CODES[act], pl.block_t, pl.fr,
+            w_up.data_ptr(), w_down.data_ptr(),
+            ws.data_ptr() if pl.ws_bytes else None, pl.ws_bytes,
+            out.data_ptr(), _DTYPES[x.dtype], t, d, f, ACT_CODES[act], n_sm,
             stream)
     if err != 0:
         msg = lib.fused_ffn_error_string(err).decode()

@@ -234,7 +234,10 @@ def test_fused_ffn_cuda_matches_plain():
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [(64, 128, 512, "silu", True), (32, 64, 192, "gelu", True),
              (128, 128, 384, "relu_sq", True), (64, 96, 256, "gelu", False),
-             (1, 256, 1040, "relu", True), (77, 3584, 1024, "gelu", True)]
+             (1, 256, 1040, "relu", True), (77, 3584, 1024, "gelu", True),
+             # gemma2-9b's decode and a ragged prefill: d_ff groups with f32
+             # partials, and one cluster walk over 16 token tiles
+             (4, 3584, 14336, "gelu", True), (1000, 3584, 14336, "gelu", True)]
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
         for t, d, f, act, gated in cases:
             x = torch.randn((t, d), generator=gen, device="cuda").to(dtype)

@@ -214,17 +214,26 @@ def test_ffn_plan_covers_d_ff_and_keeps_h_in_shared_memory():
                      (2048, torch.bfloat16), (1000, torch.bfloat16),
                      (64, torch.float32), (17, torch.float32)]:
         for d_ff in (14336, 512, 192, 16):
-            pl = tff.plan(t, d_ff, dtype, n_sm=132)
-            item = 2 if dtype == torch.bfloat16 else 4
-            assert pl.fr % tff.CHUNK == 0
-            assert pl.splits * pl.fr >= d_ff > (pl.splits - 1) * pl.fr
-            assert pl.block_t * pl.fr * item <= tff.H_SMEM_BYTES
-            assert pl.t_pad >= t and pl.t_pad % pl.block_t == 0
-    # the gemma2-9b path shapes: prefill and decode
-    assert tff.plan(2048, 14336, torch.bfloat16, 132) == tff.Plan(64, 1024, 14,
-                                                                  2048)
-    assert tff.plan(4, 14336, torch.bfloat16, 132) == tff.Plan(16, 128, 112,
-                                                               16)
+            pl = tff.plan(t, 3584, d_ff, dtype, n_sm=132)
+            # bf16: groups of whole chunks; f32: splits of 128-column chunks
+            step = pl.chunk if dtype == torch.bfloat16 else tff.F32_COLS
+            assert pl.chunks * step >= d_ff > (pl.chunks - 1) * step
+            assert pl.groups * pl.per_group >= pl.chunks
+            assert (pl.groups - 1) * pl.per_group < pl.chunks
+            assert pl.smem_bytes <= tff.SMEM_LIMIT
+            if dtype == torch.bfloat16:
+                # the h chunk (bf16) sits in shared memory
+                assert pl.smem_bytes > pl.chunk * pl.block_t * 2
+                assert pl.grid[1] * pl.block_t >= t
+                assert (pl.ws_bytes == 0) == (pl.groups == 1)
+            else:
+                assert pl.block_t * pl.chunk * 4 <= tff.F32_H_BYTES
+                assert pl.grid[0] * pl.block_t >= t
+    # the gemma2-9b path shapes: prefill (no workspace) and decode
+    assert tff.plan(2048, 3584, 14336, torch.bfloat16, 132) == tff.Plan(
+        64, 8, 448, 512, 3, 1, 28, 28, 214_128, (8, 32, 1), 0)
+    assert tff.plan(4, 3584, 14336, torch.bfloat16, 132) == tff.Plan(
+        64, 8, 448, 512, 3, 14, 2, 28, 214_128, (8, 1, 14), 802_816)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors_without_counting():
