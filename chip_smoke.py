@@ -16,17 +16,25 @@ hand-written flash-attention and fused-FFN kernels. Phases:
    ``flash_attention.plan``, and the FFN launcher's plan (cluster, columns,
    chunk, ring stages, d_ff groups, shared memory, grid, workspace) must
    equal ``fused_ffn.plan`` at the serve path's and the checks' shapes;
+   the DSC kernel's registers and spill line, the count of IMMA (int8
+   tensor-core) instructions in its SASS where the toolkit has
+   ``cuobjdump``, and its launcher's ``fused_dsc_plan`` (tile rows, units,
+   grid, shared memory, padded K, ...) must equal ``fused_dsc.plan`` for the
+   seven blocks at batch 1 and 256, with the card's occupancy at least the
+   plan's blocks per SM;
 3. DSC kernel vs plain version: ``fused_dsc_cuda`` must equal
    ``ref.fused_dsc_ref`` on the card and on the CPU (``torch.equal``) for the
-   seven blocks of the 80x80 network at batch 64, the eight ragged shapes of
+   seven blocks of the 80x80 network at batch 1 and 256 (the plan's tiles)
+   and at batch 64 (4-row tiles and the plan's), the eight ragged shapes of
    tests/test_kernels.py and one block with a non-zero float expansion bias;
-4. DSC end to end: the seed-0 80x80 network on 256 seeded images through
-   ``forward_batch(use_kernel=True)`` on the card; its int8 logits must equal
-   the plain v0 forward on the CPU, and the launch count must grow by 7;
+4. DSC end to end: the seed-0 80x80 network on 256 and on 1 seeded images
+   through ``forward_batch(use_kernel=True)`` on the card; its int8 logits
+   and every int8 stage must equal the plain v0 forward on the CPU, and the
+   launch count must grow by 7 per forward;
 5. DSC serve: ``launch.serve.main(["--mobilenet", "--batch", "256"])``;
-6. per DSC block at batch 256: kernel time (CUDA events, warm L2 as in the
-   forward), plain-version time, and the bound max(ops / 1,979 TOP/s,
-   bytes / 3.35 TB/s);
+6. per DSC block at batch 256 and at batch 1: kernel time (CUDA events,
+   warm L2 as in the forward), plain-version time, and the bound
+   max(ops / 1,979 TOP/s, bytes / 3.35 TB/s);
 7. where a forward's time goes at batch 1 and 256: host-clock latency and
    the device time torch.profiler records;
 8. LM kernels vs plain versions: flash attention on the tests/test_kernels.py
@@ -36,7 +44,8 @@ hand-written flash-attention and fused-FFN kernels. Phases:
    B 2 P 509 unwindowed); the fused FFN on the
    tests/test_kernels.py sweep (card and CPU) and at gemma2-9b's widths,
    T 1, 4, 77, 1000, 2048; f32 within 2e-5, bf16 within 2e-2 elementwise
-   and 1e-2 in relative norm;
+   and 1e-2 in relative norm; the f32 flash outputs are held on the CPU to
+   the plain version computed in float64 and cast to float32;
 9. LM end to end: full-width, full-depth gemma2-9b, seeded bf16 weights, B 4,
    P 512: one prefill and one decode step through the kernels, every kernel
    call held to its plain version on the same inputs, launches +42 flash and
@@ -71,6 +80,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -124,15 +134,22 @@ def block_args(qp):
     return tensors, statics
 
 
+def block_maps(net):
+    """The input map size of each of the 80x80 network's seven blocks."""
+    hw, maps = 40, []   # 40: the stem output of an 80x80 image
+    for qp in net.blocks:
+        maps.append(hw)
+        hw = qp.spec.out_hw(hw, hw)[0]
+    return maps
+
+
 def network_block_cases(net_cpu, batch: int, rng):
     """(name, x, block params) for the seven blocks at their 80x80-network
     input sizes, with seeded random int8 inputs."""
-    hw, cases = 40, []   # 40: the stem output of an 80x80 image
-    for (name, *_), qp in zip(mnv2.PAPER_BLOCKS, net_cpu.blocks):
-        x = rng.integers(-128, 128, (batch, hw, hw, qp.spec.cin), np.int8)
-        cases.append((name, torch.from_numpy(x), qp))
-        hw = qp.spec.out_hw(hw, hw)[0]
-    return cases
+    return [(name, torch.from_numpy(rng.integers(
+                -128, 128, (batch, hw, hw, qp.spec.cin), np.int8)), qp)
+            for (name, *_), qp, hw in zip(mnv2.PAPER_BLOCKS, net_cpu.blocks,
+                                          block_maps(net_cpu))]
 
 
 def ragged_block_cases(rng):
@@ -181,16 +198,47 @@ def phase_build():
             say(f"[build]   {line}")
     for name in ("fused_dsc", "flash_attention", "fused_ffn"):
         check(name in built, f"{name} was not built")
-    for lib in ("flash_attention", "fused_ffn"):
+    for lib in ("fused_dsc", "flash_attention", "fused_ffn"):
         for kernel, regs, spills in ptxas_kernels(built[lib].ptxas):
             say(f"[build] {lib} {kernel}: {regs} registers, {spills}")
+            if lib == "fused_dsc":
+                check("0 bytes spill stores" in spills,
+                      f"fused_dsc {kernel} spills: {spills}")
+    imma = sass_counts(built["fused_dsc"].path, "IMMA")
+    if imma is None:
+        say("[build] fused_dsc SASS: cuobjdump not found, IMMA not counted")
+    else:
+        say(f"[build] fused_dsc SASS: {imma} IMMA instructions per kernel")
+        check(all(n > 0 for n in imma.values()),
+              f"fused_dsc SASS has no IMMA instruction: {imma}")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    net = mnv2.init_and_quantize(0, img_hw=80, device="cpu")
+    for batch in (1, 256):
+        tiles = []
+        for (name, *_), qp, hw in zip(mnv2.PAPER_BLOCKS, net.blocks,
+                                      block_maps(net)):
+            sp = qp.spec
+            pl = fused_dsc.plan(batch, hw, hw, sp.cin, sp.cmid, sp.cout,
+                                sp.stride, None, n_sm)
+            check(fused_dsc.kernel_plan(batch, hw, hw, sp.cin, sp.cmid,
+                                        sp.cout, sp.stride, None, n_sm)
+                  == pl.as_tuple(),
+                  f"dsc launcher plan != fused_dsc.plan: {name} B{batch}")
+            occ = fused_dsc.occupancy(sp.stride, sp.cin, pl.smem_bytes)
+            check(occ >= pl.blocks_per_sm,
+                  f"{name} B{batch}: {occ} blocks fit per SM, the plan "
+                  f"assumes {pl.blocks_per_sm}")
+            tiles.append(f"{name} {pl.tile_rows} rows x {pl.units} units on "
+                         f"{pl.grid} blocks ({pl.smem_bytes} B, "
+                         f"{pl.blocks_per_sm}/SM, card {occ}/SM)")
+        say(f"[build] fused_dsc plan B{batch} == the launcher's: "
+            + "; ".join(tiles))
     for d in range(16, 257, 16):
         check(flash_attention.kernel_smem_bytes(d) == flash_attention.plan(
             1, 64, 64, 1, 1, d).smem_bytes,
             f"flash bf16 shared memory at d {d} != flash_attention.plan")
     # the FFN launcher's plan (shared memory, grid, workspace, ...) is
     # fused_ffn.plan, at the serve path's shapes and the checks' shapes
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     cfg = registry.get("gemma2-9b")
     shapes = [(t, cfg.d_model, cfg.d_ff) for t in (1, 4, 77, 1000, 2048)]
     shapes += [(t, d, f) for t, d, f, *_ in FFN_CASES]
@@ -211,6 +259,28 @@ def phase_build():
             f"{-(-pl.grid[1] * pl.grid[2] // resident)} waves")
 
 
+def sass_counts(lib_path: Path, opcode: str):
+    """{kernel: instructions whose opcode starts with ``opcode``} in a
+    library's SASS (``cuobjdump -sass``), or None without cuobjdump."""
+    tool = shutil.which("cuobjdump", path=os.pathsep.join(
+        [os.environ.get("PATH", ""), build.CUDA_BIN]))
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            mangled = line.split("Function :")[1].strip()
+            args = re.findall(r"Li(-?\d+)E", mangled)
+            kernel = (re.sub(r"^_ZN.*?\d+(?=[a-z_]+_kernel)", "", mangled)
+                      .split("I")[0] + (f"<{', '.join(args)}>" if args else ""))
+            counts[kernel] = 0
+        elif kernel is not None and re.search(rf"\b{opcode}", line):
+            counts[kernel] += 1
+    return counts
+
+
 def ptxas_kernels(lines):
     """(kernel, registers, spill line) for each entry function that ptxas
     compiled, from its "-v" lines."""
@@ -220,10 +290,11 @@ def ptxas_kernels(lines):
             mangled = line.split("'")[1]
             name = next((k for k in ("flash_wgmma_kernel", "flash_f32_kernel",
                                      "ffn_wgmma_kernel", "ffn_f32_kernel",
-                                     "reduce_kernel") if k in mangled), mangled)
+                                     "reduce_kernel", "fused_dsc_kernel")
+                         if k in mangled), mangled)
             tmpl = mangled.split(name, 1)[-1]
-            if tmpl[:3] == "ILi":     # an int template argument
-                name += f"<{tmpl[3:tmpl.index('E')]}>"
+            if tmpl[:3] == "ILi":     # int template arguments
+                name += f"<{', '.join(re.findall(r'Li(-?\d+)E', tmpl))}>"
             elif tmpl[:2] == "I1":    # a type: reduce_kernel<bf16 / float>
                 name += "<bf16>" if "bfloat16" in tmpl else ""
             elif tmpl[:3] == "IfE":
@@ -237,7 +308,7 @@ def ptxas_kernels(lines):
     return out
 
 
-def run_kernel_vs_plain(name, x_cpu, qp_cpu, device, tile_rows=4) -> None:
+def run_kernel_vs_plain(name, x_cpu, qp_cpu, device, tile_rows) -> None:
     """Kernel on the card vs the plain version on the card and on the CPU."""
     tensors, st = block_args(qp_cpu)
     x = x_cpu.to(device)
@@ -254,16 +325,21 @@ def run_kernel_vs_plain(name, x_cpu, qp_cpu, device, tile_rows=4) -> None:
           f"{name}: kernel != plain version on CPU (max |diff| {err})")
 
 
-def phase_kernel_vs_plain(net_cpu, device, batch=64):
+def phase_kernel_vs_plain(net_cpu, device):
     rng = np.random.default_rng(11)
     n = 0
-    for name, x, qp in network_block_cases(net_cpu, batch, rng):
-        run_kernel_vs_plain(name, x, qp, device)
-        n += 1
+    for batch, tiles in ((64, (4, None)), (1, (None,)), (256, (None,))):
+        for name, x, qp in network_block_cases(net_cpu, batch, rng):
+            for tile_rows in tiles:
+                run_kernel_vs_plain(f"{name} B{batch}", x, qp, device,
+                                    tile_rows)
+                n += 1
     for name, x, qp, tile_rows in ragged_block_cases(rng):
         run_kernel_vs_plain(name, x, qp, device, tile_rows)
         n += 1
-    say(f"[kernel] fused_dsc == fused_dsc_ref (card and CPU) on {n} shapes")
+    say(f"[kernel] fused_dsc == fused_dsc_ref (card and CPU) on {n} cases: "
+        f"the seven blocks at batch 64 (4-row and planned tiles), 1 and 256 "
+        f"(planned tiles), nine ragged shapes")
 
 
 def phase_end_to_end(net_cpu, device, batch=256) -> int:
@@ -383,14 +459,15 @@ def phase_kernel_times(net_cpu, device, launches_per_forward, batch=256):
         plain_ms = time_ms(plain)
         ops, nbytes, bound_ms, bound_by = bound(x, qp)
         entries.append({
-            "name": f"fused_dsc[{name}]", "route": "cuda", "source": SOURCE,
+            "name": f"fused_dsc[{name} B{batch}]", "route": "cuda",
+            "source": SOURCE, "batch": batch,
             "replaces": REPLACES, "launches": per_block, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None,
             "ops": ops, "bytes": nbytes,
             "shape": list(x.shape), "cmid": qp.spec.cmid,
             "cout": qp.spec.cout, "stride": qp.spec.stride})
-        say(f"[time] {name:>4} x{tuple(x.shape)}: kernel {ms:.6f} ms, plain "
+        say(f"[time] {name:>4} B{batch} x{tuple(x.shape)}: kernel {ms:.6f} ms, plain "
             f"{plain_ms:.6f} ms, bound {bound_ms:.6f} ms ({bound_by}), "
             f"{bound_ms / ms:.2%} of bound")
     total = sum(e["ms"] for e in entries)
@@ -511,6 +588,18 @@ def rand(gen, shape, dtype, scale=1.0, device="cuda"):
             * scale).to(dtype)
 
 
+def cpu_attention_ref(q, k, v, **kw):
+    """The plain attention on the CPU. In float32 it is computed in float64
+    and cast to float32: the card's kernel is deterministic and the host's
+    float32 order of sums is no better a reference than the kernel's
+    (probes/flash_f32_repeat.py)."""
+    q, k, v = q.cpu(), k.cpu(), v.cpu()
+    if q.dtype == torch.float32:
+        return ref.attention_ref(q.double(), k.double(), v.double(),
+                                 **kw).float()
+    return ref.attention_ref(q, k, v, **kw)
+
+
 def phase_lm_kernel_vs_plain(device):
     """Both LM kernels against their plain versions: the tests/test_kernels.py
     matrices (on the card and on the CPU) and gemma2-9b's shapes (card)."""
@@ -531,8 +620,8 @@ def phase_lm_kernel_vs_plain(device):
             name = f"flash {tq}x{tk}x{d} {kw} {dtype}"
             _, rel = close(got, ref.attention_ref(q, k, v, **kw), tol,
                            name + " card")
-            close(got.cpu(), ref.attention_ref(q.cpu(), k.cpu(), v.cpu(), **kw),
-                  tol, name + " CPU")
+            close(got.cpu(), cpu_attention_ref(q, k, v, **kw), tol,
+                  name + " CPU")
             worst = max(worst, rel) if dtype == torch.bfloat16 else worst
             n += 1
     # gemma2-9b: B 4, 16 query / 8 KV heads, d 256, causal, softcap 50;
@@ -1093,9 +1182,13 @@ def main() -> int:
     phase_build()
     net_cpu = mnv2.init_and_quantize(0, img_hw=80, device="cpu")
     phase_kernel_vs_plain(net_cpu, device)
-    launches = phase_end_to_end(net_cpu, device)
+    launches = phase_end_to_end(net_cpu, device, 256)
+    check(phase_end_to_end(net_cpu, device, 1) == launches,
+          "batch-1 forward launched another count")
     phase_serve(net_cpu)
-    entries = phase_kernel_times(net_cpu, device, launches)
+    entries = []
+    for batch in (256, 1):
+        entries += phase_kernel_times(net_cpu, device, launches, batch)
     phase_profile(net_cpu, device)
 
     phase_lm_kernel_vs_plain(device)

@@ -20,9 +20,10 @@ from repro_torch.kernels import ref
 
 def dsc_block(x_q: torch.Tensor, w_exp, w_dw9, w_proj, b_exp, b_dw, b_proj,
               m_exp, m_dw, m_proj, *, stride: int, zps, q6,
-              tile_rows: int = 4) -> torch.Tensor:
+              tile_rows: Optional[int] = None) -> torch.Tensor:
     """One fused Ex->Dw->Pr inverted-residual block (no residual add) on a
-    (B, H, W, C) int8 batch."""
+    (B, H, W, C) int8 batch. ``tile_rows`` None lets the kernel's plan pick
+    the rows per unit."""
     args = (x_q, w_exp, w_dw9, w_proj, b_exp, b_dw, b_proj, m_exp, m_dw,
             m_proj)
     if x_q.device.type == "cuda":

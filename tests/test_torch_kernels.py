@@ -157,19 +157,24 @@ def test_fused_dsc_cuda_matches_plain():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the fused DSC kernel has no CPU mode")
     b = np.random.default_rng(7).standard_normal(24).astype(np.float32)
-    cases = [(spec, hw, tr, None) for spec, hw, tr in CASES]
-    cases.append((DSCBlockSpec(cin=8, cmid=24, cout=8, stride=1), 9, 4, b))
+    # (spec, map, tile_rows, b_exp, batch): the ragged matrix with its tile
+    # rows and with the plan's (None), at batch 3 and 1
+    cases = [(spec, hw, t, None, n) for spec, hw, tr in CASES
+             for t in (tr, None) for n in (3, 1)]
+    cases.append((DSCBlockSpec(cin=8, cmid=24, cout=8, stride=1), 9, 4, b, 3))
+    cases.append((DSCBlockSpec(cin=8, cmid=24, cout=8, stride=1), 9, None, b,
+                  1))
     rng = np.random.default_rng(0)
-    for spec, hw, tile_rows, b_exp in cases:
+    for spec, hw, tile_rows, b_exp, batch in cases:
         arrays, st = port_kernel_args(spec, hw, b_exp_f32=b_exp)
-        xs = rng.integers(-128, 128, (3, hw, hw, spec.cin)).astype(np.int8)
+        xs = rng.integers(-128, 128, (batch, hw, hw, spec.cin)).astype(np.int8)
         x, ts = torch_args(xs, arrays, device="cuda")
         before = fused_dsc.LAUNCHES
         got = fused_dsc.fused_dsc_cuda(x, *ts, tile_rows=tile_rows, **st)
         torch.cuda.synchronize()
         assert fused_dsc.LAUNCHES == before + 1
         want = ref.fused_dsc_ref(x, *ts, **st)
-        assert torch.equal(got, want), (spec, hw, tile_rows)
+        assert torch.equal(got, want), (spec, hw, tile_rows, batch)
         x_cpu, ts_cpu = torch_args(xs, arrays)
         assert torch.equal(got.cpu(), ref.fused_dsc_ref(x_cpu, *ts_cpu, **st))
         # the public wrapper sends CUDA tensors to the kernel
