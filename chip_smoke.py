@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths and fails (non-zero exit, no result line) on any
-error: int8 MobileNetV2-VWW inference through the hand-written fused DSC
-kernel, and gemma2-9b serving (prefill + greedy decode) through the
-hand-written flash-attention and fused-FFN kernels. Phases:
+Drives the port's three paths and fails (non-zero exit, no result line) on
+any error: int8 MobileNetV2-VWW inference through the hand-written fused DSC
+kernel, the same network compiled for the CFU and run by the CFU fast path
+(whose fused and row-tile stages launch the same kernel), and gemma2-9b
+serving (prefill + greedy decode) through the hand-written flash-attention
+and fused-FFN kernels. Phases:
 
 1. the card's name and power limit (nvidia-smi); no CUDA device -> fail;
 2. build every kernel from src/repro_torch/kernels/csrc (one nvcc each, all
@@ -37,7 +39,29 @@ hand-written flash-attention and fused-FFN kernels. Phases:
    max(ops / 1,979 TOP/s, bytes / 3.35 TB/s);
 7. where a forward's time goes at batch 1 and 256: host-clock latency and
    the device time torch.profiler records;
-8. LM kernels vs plain versions: flash attention on the tests/test_kernels.py
+8. CFU compile: the 80x80 network through the port's compiler under the
+   five schedules and ``auto``, on 1 and 3 cores (streams); words per
+   stream and fingerprint printed, the text assembly re-assembles to the
+   same words;
+9. CFU fast path vs golden model: for each (schedule, streams),
+   ``cfu.fastpath.run_fast`` on the card at batch 4 must equal the port's
+   golden executor (numpy) on the same images, with 7 DSC launches per call
+   under fused and fused-rowtile, 3 under fused-winograd, 0 under the layer
+   schedules and one per fused or row-tile block under auto; the narrow
+   chain of tests/test_cfu_fastpath.py (C 3, M 9) must be refused on the
+   card with ``FastPathError``; at batch 256 on one core, every schedule's
+   int8 logits must equal ``forward_batch(use_kernel=True)`` and the CPU
+   fast path (the plain versions);
+10. CFU entry point: ``launch.cfu.main(["--network", "vww", "--backend",
+   "fast", "--batch", "256", "--schedule", "all"])``, every schedule
+   verified;
+11. CFU times at batch 1 and 256, with the card's name and power limit:
+   host-clock ms per ``run_fast`` call (and per call of the executor it
+   looks up) under fused and fused-rowtile and
+   per ``forward_batch`` on the same weights, the device-busy ms
+   torch.profiler records and the idle share; the seven DSC launches at the
+   row-tile stream's tile rows and at the plan's (CUDA-graph time);
+12. LM kernels vs plain versions: flash attention on the tests/test_kernels.py
    matrix (card and CPU) and at gemma2-9b's shapes (d 256, GQA 16/8,
    softcap 50, windows 4096, none and 64, ragged P) and at the wgmma
    kernel's edges (d 16 and 128, Tk < 64, Tq 65 / Tk 129 with window 48,
@@ -46,17 +70,17 @@ hand-written flash-attention and fused-FFN kernels. Phases:
    T 1, 4, 77, 1000, 2048; f32 within 2e-5, bf16 within 2e-2 elementwise
    and 1e-2 in relative norm; the f32 flash outputs are held on the CPU to
    the plain version computed in float64 and cast to float32;
-9. LM end to end: full-width, full-depth gemma2-9b, seeded bf16 weights, B 4,
+13. LM end to end: full-width, full-depth gemma2-9b, seeded bf16 weights, B 4,
    P 512: one prefill and one decode step through the kernels, every kernel
    call held to its plain version on the same inputs, launches +42 flash and
    +42 FFN per prefill, +42 FFN per decode step; the bf16 drift between the
    kernel path, the kernels' plain versions and the plain disciplines
    (information); one pattern unit in float32, kernel vs reference
    disciplines, within 1e-3;
-10. LM serve: ``launch.serve.main(["--arch", "gemma2-9b", "--batch", "4",
+14. LM serve: ``launch.serve.main(["--arch", "gemma2-9b", "--batch", "4",
    "--prompt-len", "512", "--gen", "16"])``, whose tokens must equal a direct
    prefill/decode_step greedy loop with the same weights;
-11. each LM kernel at its path shapes: CUDA-graph time, plain-version time,
+15. each LM kernel at its path shapes: CUDA-graph time, plain-version time,
    the bound max(flops / 989 TFLOP/s, bytes / 3.35 TB/s), and for flash
    attention the time of ``torch.compile(flex_attention)`` on the same
    inputs (the library yardstick, held to the plain version); flash again at
@@ -68,15 +92,18 @@ hand-written flash-attention and fused-FFN kernels. Phases:
    of the unfused bf16 chain (three ``torch.matmul`` with h in device
    memory: a yardstick the port never calls, not one call of the same
    function);
-12. where a prefill's and a decode step's time goes (torch.profiler).
+16. where a prefill's and a decode step's time goes (torch.profiler).
 
 The last stdout line is {"ok": true, "device": {...}}; the line before it is
-the {"kernels": [...]} record.
+the {"kernels": [...]} record, whose DSC rows also carry the kernel's
+launches per fast-path call under each schedule.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -91,12 +118,20 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.core import dsc  # noqa: E402
+from repro_torch.cfu import fastpath, isa  # noqa: E402
+from repro_torch.cfu.compiler import (compile_network,  # noqa: E402
+                                      compile_vww_network, schedule_names)
+from repro_torch.cfu.executor import (run_multistream,  # noqa: E402
+                                      run_program)
+from repro_torch.cfu.network import (random_chain_params,  # noqa: E402
+                                     vww_cfu_params)
+from repro_torch.core import dsc, quant  # noqa: E402
 from repro_torch.core.dsc import DSCBlockSpec as S  # noqa: E402
 from repro_torch.core.fusion import Schedule  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.kernels import (build, flash_attention, fused_dsc,  # noqa: E402
                                  fused_ffn, ops, ref)
+from repro_torch.launch import cfu as cfu_cli  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import mobilenetv2 as mnv2  # noqa: E402
@@ -476,48 +511,256 @@ def phase_kernel_times(net_cpu, device, launches_per_forward, batch=256):
     return entries
 
 
+def host_and_device_ms(fn, reps=5):
+    """(host-clock ms per ``fn()`` call, unprofiled; device-busy ms per call
+    from torch.profiler (CUPTI) or None where it records no device time;
+    device activities per call; {name: device ms per call})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in on_device:
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.device_time_total / 1e3 / reps)
+    busy_ms = sum(by_name.values()) if on_device else None
+    return host_ms, busy_ms, len(on_device) // reps, by_name
+
+
+def busy_line(host_ms, busy_ms, n_act) -> str:
+    if busy_ms is None:
+        return (f"{host_ms:.6f} ms (host clock); the profiler recorded no "
+                "device time: busy share not measured")
+    return (f"{host_ms:.6f} ms (host clock); device busy {busy_ms:.6f} ms "
+            f"({busy_ms / host_ms:.2%}), idle share "
+            f"{1 - busy_ms / host_ms:.2%}; {n_act} device activities")
+
+
 def phase_profile(net_cpu, device, batches=(1, 256), reps=5):
     """Where a forward's time goes: the host-clock latency of the eager
     forward (unprofiled), and the device time its kernels and copies take
     (torch.profiler, CUPTI). Their difference is the device's idle time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     net = net_cpu.to(device)
     rng = np.random.default_rng(2)
     for batch in batches:
         imgs = torch.from_numpy(rng.standard_normal(
             (batch, 80, 80, 3)).astype(np.float32)).to(device)
-        fwd = lambda: mnv2.forward_batch(imgs, net, use_kernel=True)
-        for _ in range(3):
-            fwd()
-        torch.cuda.synchronize()
+        host_ms, busy_ms, n_act, by_name = host_and_device_ms(
+            lambda: mnv2.forward_batch(imgs, net, use_kernel=True), reps)
+        say(f"[profile] batch {batch}: eager forward "
+            f"{busy_line(host_ms, busy_ms, n_act)} per forward")
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+            say(f"[profile]   {ms:.6f} ms  {name[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# CFU path: the compiled VWW network through the fast path
+# ---------------------------------------------------------------------------
+
+CFU_SCHEDULES = schedule_names(include_auto=True)
+CFU_STREAMS = (1, 3)
+# DSC kernel launches per fast-path call of the VWW network: fused and
+# row-tile stages run the kernel; winograd runs its own stage body on the
+# four stride-1 blocks and fused on the three stride-2 ones; layer
+# schedules run the plain layer-by-layer block.
+CFU_LAUNCHES = {"fused": 7, "fused-rowtile": 7, "fused-winograd": 3,
+                "layer-dram": 0, "layer-sram": 0}
+# tests/test_cfu_fastpath.py's chain: widths the kernel does not take
+NARROW_CHAIN = (S(3, 9, 5, 1), S(5, 15, 5, 2), S(5, 10, 4, 1))
+
+
+def cfu_launches(sched: str, prog) -> int:
+    """The DSC kernel launches one fast-path call of ``prog`` must make:
+    one per block the compiler lowered to fused or row-tile."""
+    picks = prog.meta["block_schedules"].values()
+    n = sum(1 for p in picks if p in ("fused", "fused-rowtile"))
+    check(CFU_LAUNCHES.get(sched, n) == n,
+          f"{sched}: {n} fused/row-tile blocks, expected {CFU_LAUNCHES}")
+    return n
+
+
+def phase_cfu_compile():
+    """The 80x80 VWW network through the port's compiler under every
+    schedule and ``auto``, on one core and on three; the text assembly
+    must re-assemble to the same words."""
+    progs = {}
+    for sched in CFU_SCHEDULES:
+        for streams in CFU_STREAMS:
+            t0 = time.perf_counter()
+            prog = compile_vww_network(mnv2.block_specs(), 80, sched,
+                                       streams=streams)
+            secs = time.perf_counter() - t0
+            words = []
+            for p in getattr(prog, "streams", None) or [prog]:
+                enc = isa.encode_program(p)
+                back = isa.encode_program(
+                    isa.program_from_asm(isa.program_to_asm(p)))
+                check(np.array_equal(back, enc),
+                      f"{sched} streams {streams}: assembly round trip "
+                      "changed the words")
+                words.append(len(enc))
+            progs[(sched, streams)] = prog
+            say(f"[cfu] {sched} streams {streams}: words per stream {words}, "
+                f"fingerprint {fastpath.program_fingerprint(prog)}, compiled "
+                f"in {secs:.3f} s; assembly round trip equal")
+    return progs
+
+
+def phase_cfu_vs_golden(net_cpu, progs, device, batch=4):
+    """``run_fast`` on the card against the port's golden executor on the
+    same images, for every (schedule, streams), with the DSC launches each
+    call must make; and the narrow chain refused on the card."""
+    params = vww_cfu_params(net_cpu)
+    imgs = np.random.default_rng(3).standard_normal(
+        (batch, 80, 80, 3)).astype(np.float32)
+    x_q = quant.quantize(imgs, net_cpu.qp_img).numpy()
+    for (sched, streams), prog in progs.items():
         t0 = time.perf_counter()
-        for _ in range(reps):
-            fwd()
+        golden = (run_program(prog, x_q, params) if streams == 1
+                  else run_multistream(prog, x_q, params, batch=batch))
+        golden_s = time.perf_counter() - t0
+        fused_dsc.LAUNCHES = 0
+        got = fastpath.run_fast(prog, x_q, params, device=device)
         torch.cuda.synchronize()
-        eager_ms = (time.perf_counter() - t0) / reps * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fwd()
-            torch.cuda.synchronize()
-        on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if not on_device:
-            say(f"[profile] batch {batch}: eager forward {eager_ms:.6f} ms; "
-                "the profiler recorded no device time: busy share not "
-                "measured")
-            continue
-        by_name = {}
-        for e in on_device:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
-        busy_ms = sum(by_name.values()) / 1e3 / reps
-        say(f"[profile] batch {batch}: eager forward {eager_ms:.6f} ms "
-            f"(host clock); device busy {busy_ms:.6f} ms per forward "
-            f"({busy_ms / eager_ms:.2%}), idle share "
-            f"{1 - busy_ms / eager_ms:.2%}; {len(on_device) // reps} device "
-            "activities per forward")
-        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
-            say(f"[profile]   {us / 1e3 / reps:.6f} ms  {name[:90]}")
+        n = fused_dsc.LAUNCHES
+        want_n = cfu_launches(sched, prog)
+        check(n == want_n, f"{sched} streams {streams}: {n} DSC launches, "
+              f"expected {want_n}")
+        check(got.device.type == torch.device(device).type
+              and got.dtype == torch.int8,
+              f"{sched}: fast path returned {got.dtype} on {got.device}")
+        check(np.array_equal(got.cpu().numpy(), golden),
+              f"{sched} streams {streams}: fast path (card) != golden "
+              "executor")
+        say(f"[cfu] {sched} streams {streams} B{batch}: fast path (card) == "
+            f"golden executor ({golden_s:.2f} s); {n} DSC launches")
+    specs = [(f"b{i}", spec) for i, spec in enumerate(NARROW_CHAIN)]
+    chain = random_chain_params(0, specs, 13)
+    prog = compile_network(specs, 13, 13, "fused")
+    x = np.zeros((13, 13, 3), np.int8)
+    try:
+        fastpath.run_fast(prog, x, chain, device=device)
+    except fastpath.FastPathError as e:
+        say(f"[cfu] narrow chain (C 3, M 9) on the card refused: {e}")
+    else:
+        check(False, "the narrow chain ran on the card: the width refusal "
+              "did not fire")
+
+
+def phase_cfu_batch(net_cpu, progs, device, batch=256):
+    """At batch 256, one core: the fast path's int8 logits on the card must
+    equal ``forward_batch(use_kernel=True)`` and the CPU fast path (the
+    plain versions). Returns {schedule: DSC launches per call}."""
+    params = vww_cfu_params(net_cpu)
+    net = net_cpu.to(device)
+    imgs = np.random.default_rng(4).standard_normal(
+        (batch, 80, 80, 3)).astype(np.float32)
+    x_q = quant.quantize(imgs, net_cpu.qp_img).numpy()
+    want = mnv2.forward_batch(torch.from_numpy(imgs).to(device), net,
+                              use_kernel=True, return_quantized=True)
+    launches = {}
+    for sched in CFU_SCHEDULES:
+        prog = progs[(sched, 1)]
+        fused_dsc.LAUNCHES = 0
+        got = fastpath.run_fast(prog, x_q, params, device=device)
+        torch.cuda.synchronize()
+        launches[sched] = fused_dsc.LAUNCHES
+        check(launches[sched] == cfu_launches(sched, prog),
+              f"{sched} B{batch}: {launches[sched]} DSC launches")
+        check(torch.equal(got, want),
+              f"{sched} B{batch}: fast path != forward_batch (card)")
+        cpu = fastpath.run_fast(prog, x_q, params, device="cpu")
+        check(torch.equal(got.cpu(), cpu),
+              f"{sched} B{batch}: fast path (card) != fast path (CPU)")
+        say(f"[cfu] {sched} B{batch}: int8 logits (card) == forward_batch "
+            f"(kernel, card) == fast path (CPU); {launches[sched]} DSC "
+            "launches")
+    return launches
+
+
+def phase_cfu_entry_point(batch=256):
+    argv = ["--network", "vww", "--backend", "fast", "--batch", str(batch),
+            "--schedule", "all"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cfu_cli.main(argv)
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        say(f"[cfu-cli] {line}")
+    rows = [ln.split(",") for ln in lines
+            if ln and not ln.startswith(("#", "schedule,"))]
+    check(len(rows) == len(schedule_names()),
+          f"launch.cfu printed {len(rows)} schedule rows")
+    for row in rows:
+        check(row[-3:-1] == ["True", "True"],
+              f"launch.cfu {row[0]}: verified {row[-3:-1]}")
+    say(f"[cfu-cli] launch.cfu {' '.join(argv)}: every schedule verified")
+
+
+def phase_cfu_times(net_cpu, progs, device, batches=(1, 256)):
+    """What the fast path costs on the card, beside ``forward_batch`` on the
+    same weights: host-clock ms per call (``run_fast``, and the executor it
+    looks up, called directly), device-busy ms, idle share; and
+    the seven DSC launches at the row-tile stream's tile rows against the
+    plan's pick (CUDA-graph time)."""
+    params = vww_cfu_params(net_cpu)
+    net = net_cpu.to(device)
+    card = card_line()
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    rowtile = fastpath.fast_executor(progs[("fused-rowtile", 1)], params,
+                                     device=device)
+    rng = np.random.default_rng(6)
+    for batch in batches:
+        imgs = rng.standard_normal((batch, 80, 80, 3)).astype(np.float32)
+        imgs_dev = torch.from_numpy(imgs).to(device)
+        x_dev = quant.quantize(imgs_dev, net.qp_img)
+        calls = []
+        for s in ("fused", "fused-rowtile"):
+            ex = fastpath.fast_executor(progs[(s, 1)], params, device=device)
+            # run_fast looks the executor up by fingerprint on every call
+            calls.append((f"run_fast {s}", lambda s=s: fastpath.run_fast(
+                progs[(s, 1)], x_dev, params, device=device)))
+            calls.append((f"executor call {s} (after the lookup)",
+                          lambda ex=ex: ex(x_dev, params)))
+        calls.append(("forward_batch", lambda: mnv2.forward_batch(
+            imgs_dev, net, use_kernel=True, return_quantized=True)))
+        for label, fn in calls:
+            host_ms, busy_ms, n_act, _ = host_and_device_ms(fn)
+            say(f"[cfu-time] {card} B{batch} {label}: "
+                f"{busy_line(host_ms, busy_ms, n_act)} per call")
+        stages = [st for st in rowtile.stages if st.kind == "dsc"]
+        tot_stream = tot_plan = 0.0
+        for st, qp in zip(stages, net_cpu.blocks):
+            tensors, stat = block_args(qp)
+            ts = [t.to(device) for t in tensors]
+            x = torch.from_numpy(rng.integers(
+                -128, 128, (batch, st.h, st.w, st.cin), np.int8)).to(device)
+            pick = fused_dsc.plan(batch, st.h, st.w, st.cin, st.cmid,
+                                  st.cout, st.stride, None, n_sm).tile_rows
+            ms_stream = time_ms(lambda: fused_dsc.fused_dsc_cuda(
+                x, *ts, tile_rows=st.tile_rows, **stat))
+            ms_plan = time_ms(lambda: fused_dsc.fused_dsc_cuda(
+                x, *ts, tile_rows=None, **stat))
+            tot_stream += ms_stream
+            tot_plan += ms_plan
+            say(f"[cfu-time] {card} B{batch} block {st.block} "
+                f"{st.h}x{st.w}x{st.cin} s{st.stride}: stream tile_rows "
+                f"{st.tile_rows} {ms_stream:.6f} ms, plan's {pick} "
+                f"{ms_plan:.6f} ms")
+        say(f"[cfu-time] {card} B{batch} seven DSC launches: stream tiles "
+            f"{tot_stream:.6f} ms, plan's tiles {tot_plan:.6f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -1190,6 +1433,14 @@ def main() -> int:
     for batch in (256, 1):
         entries += phase_kernel_times(net_cpu, device, launches, batch)
     phase_profile(net_cpu, device)
+
+    progs = phase_cfu_compile()
+    phase_cfu_vs_golden(net_cpu, progs, device)
+    cfu_counts = phase_cfu_batch(net_cpu, progs, device)
+    phase_cfu_entry_point()
+    phase_cfu_times(net_cpu, progs, device)
+    for e in entries:
+        e["launches_per_fastpath_call"] = cfu_counts
 
     phase_lm_kernel_vs_plain(device)
     phase_lm_end_to_end(device)

@@ -5,15 +5,18 @@ A MobileNetV2 inverted-residual block is the three-stage sandwich
     Expansion (1x1 conv, C -> M) -> Depthwise (3x3, per-channel, stride s)
                                  -> Projection (1x1 conv, M -> N) [-> +residual]
 
-Port of ``repro.core.dsc`` with two execution disciplines:
+Port of ``repro.core.dsc`` with three execution disciplines:
 
-* ``dsc_block_reference``     -- v0, layer by layer: F1 and F2 are
+* ``dsc_block_reference``       -- v0, layer by layer: F1 and F2 are
       materialized at full size and F1 is padded explicitly.
-* ``dsc_block_fused_rowtile`` -- v3, the row-tile dataflow: per tile of
+* ``dsc_block_fused_pixelwise`` -- v1, one output pixel to completion: F1
+      is a 3x3xM tile, F2 a length-M vector, out-of-map window taps read the
+      zero point (on-the-fly padding). Here every pixel runs at once.
+* ``dsc_block_fused_rowtile``   -- v3, the row-tile dataflow: per tile of
       output rows, the haloed F1 strip is computed once and consumed by the
       depthwise and projection. Here all tiles run at once as a tensor axis.
 
-Both give bit-identical int8 outputs. Layout is HWC, with any number of
+All give bit-identical int8 outputs. Layout is HWC, with any number of
 leading batch axes (NHWC for a batch). Weights:
     w_exp  : (C, M)      int8, per-output-channel scale
     w_dw   : (3, 3, M)   int8, per-channel scale
@@ -228,6 +231,13 @@ def _expansion_acc(x_q: torch.Tensor, p: QuantizedDSCParams) -> torch.Tensor:
     return quant.int8_matmul(x_q, p.w_exp) + p.b_exp
 
 
+def _depthwise_acc_from_tile(f1_tile: torch.Tensor, w_dw: torch.Tensor,
+                             b_dw: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3, M) int8 tile -> (..., M) int32 accumulator."""
+    prod = f1_tile.to(torch.int32) * w_dw.to(torch.int32)
+    return prod.sum(dim=(-3, -2), dtype=torch.int32) + b_dw
+
+
 def _projection_acc(f2_q: torch.Tensor, p: QuantizedDSCParams) -> torch.Tensor:
     return quant.int8_matmul(f2_q, p.w_proj) + p.b_proj
 
@@ -285,6 +295,78 @@ def dsc_block_reference(x_q: torch.Tensor,
     # (f1 - zp) * w formulation: sum((f1-zp)w) = sum(f1*w) - zp*sum(w).
     f2_q = _depthwise_requant(f1_pad, h2, w2, p)
     y_q = quant.requantize(_projection_acc(f2_q, p), p.m_proj,
+                           p.qp_out.zero_point, relu=False)
+    if spec.has_residual:
+        y_q = residual_add_q(y_q, x_q, p)
+    return y_q
+
+
+# ---------------------------------------------------------------------------
+# v1: fused pixel-wise dataflow, every pixel at once
+# ---------------------------------------------------------------------------
+
+
+def _window_indices(h2: int, w2: int, stride: int, k: int, device=None):
+    """Input coordinates of the kxk window for every output pixel.
+
+    SAME padding with pad_top = pad_left = 1, as the reference's explicit
+    padding. Returns (iy, ix), each (h2, w2, k, k).
+    """
+    oy, ox = torch.meshgrid(torch.arange(h2, device=device),
+                            torch.arange(w2, device=device), indexing="ij")
+    dy, dx = torch.meshgrid(torch.arange(k, device=device),
+                            torch.arange(k, device=device), indexing="ij")
+    iy = oy[..., None, None] * stride + dy - 1
+    ix = ox[..., None, None] * stride + dx - 1
+    return iy, ix
+
+
+def _in_map(iy: torch.Tensor, ix: torch.Tensor, h: int, w: int):
+    return (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+
+
+def gather_window_otf(x_q: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
+                      zero_point: int) -> torch.Tensor:
+    """On-the-fly padding (Fig. 13b): out-of-bounds reads return the
+    zero-point value instead of reading a materialized padded tensor.
+
+    ``x_q`` is (..., H, W, C); the result is (..., *iy.shape, C).
+    """
+    h, w = x_q.shape[-3], x_q.shape[-2]
+    win = x_q[..., iy.clamp(0, h - 1), ix.clamp(0, w - 1), :]
+    return win.masked_fill(~_in_map(iy, ix, h, w)[..., None], zero_point)
+
+
+def dsc_block_fused_pixelwise(x_q: torch.Tensor,
+                              p: QuantizedDSCParams) -> torch.Tensor:
+    """Paper v1: one output pixel to completion; F1 = 3x3xM registers,
+    F2 = length-M register vector.
+
+    The reference walks the pixels with a ``lax.scan`` whose carry holds no
+    feature-map state (the zero-buffer property). With no state carried
+    between pixels, computing every pixel's window at once is the same
+    function; that is what this does, over any leading batch axes.
+    """
+    spec = p.spec
+    h, w = x_q.shape[-3], x_q.shape[-2]
+    h2, w2 = spec.out_hw(h, w)
+    iy, ix = _window_indices(h2, w2, spec.stride, spec.kernel, x_q.device)
+    # --- Expansion stage: 3x3xC window -> 3x3xM F1 tile per pixel ----------
+    win = gather_window_otf(x_q, iy, ix, p.qp_in.zero_point)
+    f1_tile = quant.requantize(_expansion_acc(win, p), p.m_exp,
+                               p.qp_f1.zero_point, relu=True,
+                               relu6_max_q=p.q6_f1)
+    # Taps whose source pixel is padding must read zp_f1 in the F1 domain:
+    # expansion(zp_in) != zp_f1 in general, so mask after the expansion.
+    f1_tile = f1_tile.masked_fill(~_in_map(iy, ix, h, w)[..., None],
+                                  p.qp_f1.zero_point)
+    # --- Depthwise stage: 3x3xM tile -> M-vector F2 ------------------------
+    f2_vec = quant.requantize(_depthwise_acc_from_tile(f1_tile, p.w_dw,
+                                                       p.b_dw),
+                              p.m_dw, p.qp_f2.zero_point, relu=True,
+                              relu6_max_q=p.q6_f2)
+    # --- Projection stage: M-vector -> N-vector output pixel ---------------
+    y_q = quant.requantize(_projection_acc(f2_vec, p), p.m_proj,
                            p.qp_out.zero_point, relu=False)
     if spec.has_residual:
         y_q = residual_add_q(y_q, x_q, p)

@@ -258,3 +258,32 @@ def test_fused_ffn_cuda_matches_plain():
             torch.cuda.synchronize()
             assert fused_ffn.LAUNCHES == before + 1
             _close(got, ref.fused_ffn_ref(x, wg, wu, wd, act=act), tol)
+
+
+@pytest.mark.gpu
+def test_cfu_fast_path_cuda_matches_cpu():
+    """The CFU fast path on the card (fused and row-tile stages through the
+    DSC kernel, 7 launches per call) equals the CPU fast path (the kernel's
+    plain version) on the 80x80 VWW network at batch 3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the fast path's DSC stages launch the "
+                    "fused DSC kernel, which has no CPU mode")
+    from repro_torch.cfu import fastpath
+    from repro_torch.cfu.compiler import compile_vww_network
+    from repro_torch.cfu.network import vww_cfu_params
+    from repro_torch.core import quant
+    from repro_torch.models import mobilenetv2 as mnv2
+    net = mnv2.init_and_quantize(0, img_hw=80, device="cpu")
+    params = vww_cfu_params(net)
+    imgs = np.random.default_rng(3).standard_normal(
+        (3, 80, 80, 3)).astype(np.float32)
+    x_q = quant.quantize(imgs, net.qp_img).numpy()
+    for sched in ("fused", "fused-rowtile"):
+        prog = compile_vww_network(mnv2.block_specs(), 80, sched)
+        before = fused_dsc.LAUNCHES
+        got = fastpath.run_fast(prog, x_q, params, device="cuda")
+        torch.cuda.synchronize()
+        assert fused_dsc.LAUNCHES == before + 7, sched
+        assert got.device.type == "cuda" and got.dtype == torch.int8
+        want = fastpath.run_fast(prog, x_q, params, device="cpu")
+        assert torch.equal(got.cpu(), want), sched
