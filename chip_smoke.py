@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths and fails (non-zero exit, no result line) on
-any error: int8 MobileNetV2-VWW inference through the hand-written fused DSC
+Drives the port's paths and fails (non-zero exit, no result line) on any
+error: int8 MobileNetV2-VWW inference through the hand-written fused DSC
 kernel, the same network compiled for the CFU and run by the CFU fast path
-(whose fused and row-tile stages launch the same kernel), and gemma2-9b
+(whose fused and row-tile stages launch the same kernel), gemma2-9b
 serving (prefill + greedy decode) through the hand-written flash-attention
-and fused-FFN kernels. Phases:
+and fused-FFN kernels, and the CFU serving simulator, whose spot checks run
+the fast path and the network on the card. Phases:
 
 1. the card's name and power limit (nvidia-smi); no CUDA device -> fail;
 2. build every kernel from src/repro_torch/kernels/csrc (one nvcc each, all
@@ -22,8 +23,9 @@ and fused-FFN kernels. Phases:
    tensor-core) instructions in its SASS where the toolkit has
    ``cuobjdump``, and its launcher's ``fused_dsc_plan`` (tile rows, units,
    grid, shared memory, padded K, ...) must equal ``fused_dsc.plan`` for the
-   seven blocks at batch 1 and 256, with the card's occupancy at least the
-   plan's blocks per SM;
+   seven blocks at batch 1 and 256 and at every batch a serving spot check
+   dispatches (1..16), with the card's occupancy at least the plan's blocks
+   per SM;
 3. DSC kernel vs plain version: ``fused_dsc_cuda`` must equal
    ``ref.fused_dsc_ref`` on the card and on the CPU (``torch.equal``) for the
    seven blocks of the 80x80 network at batch 1 and 256 (the plan's tiles)
@@ -92,11 +94,30 @@ and fused-FFN kernels. Phases:
    of the unfused bf16 chain (three ``torch.matmul`` with h in device
    memory: a yardstick the port never calls, not one call of the same
    function);
-16. where a prefill's and a decode step's time goes (torch.profiler).
+16. where a prefill's and a decode step's time goes (torch.profiler);
+17. CFU serving: ``launch.serve_cfu.main`` at 80x80 (``--backend fast --rate
+   150 --policy timeout --spot-checks 4 --batch-cap 8``), on one core and on
+   two auto-hetero cores with a core dropout at 40 ms: every spot check
+   bit-exact, at least one golden cross (the golden executor re-runs every
+   4th fast check), 7 DSC launches per check, counted apart inside the
+   fast path (7) and in the rest of the check (0: the check's reference
+   ``forward_batch`` is the plain schedule on the card, so every check
+   holds the kernel to an independent output), and every checked batch's
+   fast-path output on the card equal to ``forward_batch`` on the CPU on
+   the same frames, replayed from the checker's seed; the seconds per run,
+   the host ms per fast check and per golden cross, the checked batch
+   sizes;
+18. host ms of one spot check at batch 1..8: fast checks on one and two
+   cores, golden crosses on one core;
+19. the reliability extension and the doctor through their CLIs:
+   ``launch.cfu --network vww --protect --fault weights`` (every fault
+   detected, verified), ``launch.cfu --network vww --doctor`` and
+   ``launch.doctor --network vww`` (the categories sum to the total).
 
 The last stdout line is {"ok": true, "device": {...}}; the line before it is
 the {"kernels": [...]} record, whose DSC rows also carry the kernel's
-launches per fast-path call under each schedule.
+launches per fast-path call under each schedule and per spot check (the
+fast path's and the rest of the check's, as phase 17 counted them).
 """
 
 from __future__ import annotations
@@ -248,7 +269,8 @@ def phase_build():
               f"fused_dsc SASS has no IMMA instruction: {imma}")
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     net = mnv2.init_and_quantize(0, img_hw=80, device="cpu")
-    for batch in (1, 256):
+    # the forward's batches, and every size a serving spot check dispatches
+    for batch in sorted({1, 256} | set(range(1, SERVE_MAX_BATCH + 1))):
         tiles = []
         for (name, *_), qp, hw in zip(mnv2.PAPER_BLOCKS, net.blocks,
                                       block_maps(net)):
@@ -266,8 +288,11 @@ def phase_build():
             tiles.append(f"{name} {pl.tile_rows} rows x {pl.units} units on "
                          f"{pl.grid} blocks ({pl.smem_bytes} B, "
                          f"{pl.blocks_per_sm}/SM, card {occ}/SM)")
-        say(f"[build] fused_dsc plan B{batch} == the launcher's: "
-            + "; ".join(tiles))
+        if batch in (1, 256):
+            say(f"[build] fused_dsc plan B{batch} == the launcher's: "
+                + "; ".join(tiles))
+    say(f"[build] fused_dsc plan == the launcher's at batch 2..."
+        f"{SERVE_MAX_BATCH} too (the serving spot checks' sizes)")
     for d in range(16, 257, 16):
         check(flash_attention.kernel_smem_bytes(d) == flash_attention.plan(
             1, 64, 64, 1, 1, d).smem_bytes,
@@ -761,6 +786,225 @@ def phase_cfu_times(net_cpu, progs, device, batches=(1, 256)):
                 f"{ms_plan:.6f} ms")
         say(f"[cfu-time] {card} B{batch} seven DSC launches: stream tiles "
             f"{tot_stream:.6f} ms, plan's tiles {tot_plan:.6f} ms")
+
+
+# ---------------------------------------------------------------------------
+# CFU serving: the simulator's spot checks on the card, reliability, doctor
+# ---------------------------------------------------------------------------
+
+# launch.serve_cfu at the published resolution: 150 QPS, timeout batching,
+# batches of at most 8, four spot checks through the fast path on the card
+# (the first a golden cross: every 4th fast check is re-run by the golden
+# executor), one core and two auto-hetero cores with a core dropout
+SERVE_ARGV = ["--img-hw", "80", "--backend", "fast", "--rate", "150",
+              "--policy", "timeout", "--spot-checks", "4",
+              "--batch-cap", "8"]
+SERVE_RUNS = (("one core", []),
+              ("two cores, dropout at 40 ms",
+               ["--streams", "2", "--pe-per-core", "auto-hetero",
+                "--dropout-at-ms", "40"]))
+SERVE_SEED = 0          # serve_cfu's --seed default: weights and frames
+SERVE_MAX_BATCH = 16    # build_vww_service's max_batch: sizes a check takes
+# The DSC launches expected per fast spot check on a fused VWW program (one
+# or two cores): 7 by the fast path, none by the rest of the check (the
+# sampler's reference forward_batch is the plain schedule). Phase 17
+# counts both and holds them to these.
+SPOT_LAUNCHES = {"fast_path": 7, "rest": 0}
+
+
+@contextlib.contextmanager
+def spot_check_probe():
+    """Record every spot check of a serve_cfu run: its size, whether it
+    was a golden cross, its host ms, the DSC launches it made inside the
+    fast path and in the rest of the check, and the fast path's frames and
+    output (to hold against the CPU later). The wrappers only observe:
+    they call the originals unchanged."""
+    from repro_torch.cfu.serve import check as spot
+    checks, fast_calls = [], []
+    orig_check, orig_run_fast = spot.DifferentialSpotCheck.check, \
+        fastpath.run_fast
+
+    def run_fast(prog, x_q, params, device=None):
+        n0 = fused_dsc.LAUNCHES
+        y = orig_run_fast(prog, x_q, params, device=device)
+        fast_calls.append({"x_q": np.array(x_q, copy=True), "y": y,
+                           "launches": fused_dsc.LAUNCHES - n0})
+        return y
+
+    def timed_check(self, batch_id, size):
+        n0, k0 = fused_dsc.LAUNCHES, len(fast_calls)
+        t0 = time.perf_counter()
+        rec = orig_check(self, batch_id, size)
+        torch.cuda.synchronize()
+        n = fused_dsc.LAUNCHES - n0
+        fast = sum(c["launches"] for c in fast_calls[k0:])
+        checks.append({"size": size, "golden_cross": rec.golden_cross,
+                       "ms": (time.perf_counter() - t0) * 1e3,
+                       "launches": n, "fast_path": fast, "rest": n - fast})
+        return rec
+
+    spot.DifferentialSpotCheck.check = timed_check
+    fastpath.run_fast = run_fast
+    try:
+        yield checks, fast_calls
+    finally:
+        spot.DifferentialSpotCheck.check = orig_check
+        fastpath.run_fast = orig_run_fast
+
+
+def ms_line(checks, cross: bool) -> str:
+    rows = [c for c in checks if c["golden_cross"] == cross]
+    return ", ".join(f"B{c['size']} {c['ms']:.3f}" for c in rows) or "none"
+
+
+def phase_cfu_serving(net_cpu, device):
+    """launch.serve_cfu on the card, one core and two with a dropout: every
+    spot check bit-exact, a golden cross, the DSC launches each check
+    implies (counted apart in the fast path and in the rest of the check),
+    and every checked batch's fast-path output equal to the CPU
+    forward_batch (the DSC kernel's plain version) on the same frames.
+    ``net_cpu`` is the seed-0 80x80 network serve_cfu builds itself.
+    Returns the seconds, each run's launches and the per-check split."""
+    from repro_torch.launch import serve_cfu
+    card = card_line()
+    total_s, launches, split = 0.0, [], set()
+    for label, extra in SERVE_RUNS:
+        argv = SERVE_ARGV + extra + ["--device", torch.device(device).type]
+        out = io.StringIO()
+        with spot_check_probe() as (checks, fast_calls):
+            fused_dsc.LAUNCHES = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                summary = serve_cfu.main(argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            n_launch = fused_dsc.LAUNCHES
+        total_s += secs
+        for line in out.getvalue().splitlines():
+            say(f"[cfu-serve] {line}")
+        sc = summary["spot_checks"]
+        check(sc["backend"] == "fast" and sc["n_checks"] == 4,
+              f"{label}: spot checks {sc}")
+        check(sc["all_bit_exact"], f"{label}: a spot check diverged")
+        check(sc["n_golden_cross"] >= 1, f"{label}: no golden cross")
+        check(summary["drained"], f"{label}: the queue did not drain")
+        per_check = sum(SPOT_LAUNCHES.values())
+        got = [{k: c[k] for k in SPOT_LAUNCHES} for c in checks]
+        check(n_launch == per_check * sc["n_checks"]
+              and all(g == SPOT_LAUNCHES for g in got),
+              f"{label}: {n_launch} DSC launches for {sc['n_checks']} checks "
+              f"({got}), expected {SPOT_LAUNCHES} each")
+        split.update(tuple(g.items()) for g in got)
+        if extra:
+            check(summary.get("n_replayed", 0) >= 1
+                  and summary["device_degraded"]["n_stages"] == 1,
+                  f"{label}: the dropout replayed nothing")
+        # the checker's frames, replayed from its seed: every checked batch
+        # the fast path ran on the card equals the CPU plain forward
+        rng = np.random.default_rng(SERVE_SEED)
+        check(len(fast_calls) == sc["n_checks"],
+              f"{label}: {len(fast_calls)} fast-path calls")
+        for size, call in zip(sc["checked_sizes"], fast_calls):
+            x_q, y = call["x_q"], call["y"]
+            imgs = rng.standard_normal((size, 80, 80, 3)).astype(np.float32)
+            check(np.array_equal(quant.quantize(imgs, net_cpu.qp_img).numpy(),
+                                 x_q), f"{label}: frame replay misaligned")
+            want = mnv2.forward_batch(imgs, net_cpu, return_quantized=True)
+            check(y.device.type == torch.device(device).type
+                  and torch.equal(y.cpu(), want),
+                  f"{label} B{size}: fast path (card) != forward_batch "
+                  "(CPU plain DSC)")
+        launches.append(n_launch)
+        say(f"[cfu-serve] {card} {label}: {secs:.2f} s; {sc['n_checks']} "
+            f"spot checks bit-exact, {sc['n_golden_cross']} golden cross, "
+            f"checked sizes {sc['checked_sizes']}; {n_launch} DSC launches "
+            f"(per check: {got[0]}); every checked batch == forward_batch "
+            "(CPU plain DSC)")
+        say(f"[cfu-serve] {card} {label}: host ms per fast check "
+            f"{ms_line(checks, False)}; per golden cross "
+            f"{ms_line(checks, True)}")
+    (per_check,) = split            # one split in every check of both runs
+    return total_s, launches, dict(per_check)
+
+
+def phase_cfu_spot_times(net_cpu, device, sizes=range(1, 9), reps=3):
+    """Host ms of one spot check at each batch size a capped dispatch can
+    take, on the one- and two-core fused programs: fast-path checks (the
+    median of ``reps``), and golden crosses on one core."""
+    from repro_torch.cfu.serve.check import DifferentialSpotCheck
+    card = card_line()
+    params, net = vww_cfu_params(net_cpu), net_cpu.to(device)
+    t_start = time.perf_counter()
+    for label, kw, golden_every in (
+            ("one core, fast", {}, 10**9),
+            ("two cores, fast", {"streams": 2, "pe_per_core": "auto-hetero"},
+             10**9),
+            ("one core, golden cross", {}, 1)):
+        prog = compile_vww_network(mnv2.block_specs(), 80, "fused", **kw)
+        spot = DifferentialSpotCheck.for_vww(
+            prog, net, params, img_hw=80, backend="fast",
+            golden_every=golden_every)
+        if golden_every > 1:
+            spot.check(0, 1)            # the first fast check crosses
+        row = []
+        for size in sizes:
+            times = []
+            for _ in range(1 if golden_every == 1 else reps):
+                t0 = time.perf_counter()
+                rec = spot.check(0, size)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                cross = golden_every == 1
+                check(rec.bit_exact and rec.golden_cross == cross,
+                      f"{label} B{size}: {rec}")
+            row.append(f"B{size} {float(np.median(times)):.3f}")
+        say(f"[cfu-serve-time] {card} host ms per spot check, {label}: "
+            + ", ".join(row))
+    return time.perf_counter() - t_start
+
+
+def phase_cfu_reliability_doctor(device):
+    """launch.cfu --protect --fault weights and --doctor, and launch.doctor,
+    on the VWW network: host work, run where the port is deployed."""
+    from repro_torch.launch import doctor as doctor_cli
+    t_start = time.perf_counter()
+    for argv in (["--network", "vww", "--protect", "--fault", "weights"],
+                 ["--network", "vww", "--doctor"]):
+        argv = argv + ["--device", torch.device(device).type]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cfu_cli.main(argv)
+        lines = out.getvalue().splitlines()
+        for line in lines:
+            say(f"[cfu-rel] {line}")
+        row = next(ln.split(",") for ln in lines if ln.startswith("fused,"))
+        check(row[-3:-1] == ["True", "True"],
+              f"launch.cfu {' '.join(argv)}: verified {row[-3:-1]}")
+        if "--fault" in argv:
+            check(any("protect=on): detected=8" in ln for ln in lines),
+                  "protected weight faults: not all 8 detected")
+        else:
+            check(any(ln.startswith("# cycle attribution") for ln in lines)
+                  and any(ln.startswith("what_if,") for ln in lines),
+                  "launch.cfu --doctor printed no attribution")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        payload = doctor_cli.main(["--network", "vww"])
+    for line in out.getvalue().splitlines():
+        say(f"[cfu-doctor] {line}")
+    attr = payload["attribution"]
+    total = 0.0
+    for v in attr["categories"].values():
+        total += v
+    check(total == attr["total_cycles"],
+          "launch.doctor: the categories do not sum to the total")
+    check(len(payload["roofline"]) == 1 and payload["what_ifs"],
+          "launch.doctor: no roofline point or what-if")
+    secs = time.perf_counter() - t_start
+    say(f"[cfu-rel] launch.cfu --protect --fault weights: every fault "
+        f"detected, verified; --doctor and launch.doctor conserve; "
+        f"{secs:.2f} s")
+    return secs
 
 
 # ---------------------------------------------------------------------------
@@ -1448,6 +1692,16 @@ def main() -> int:
     entries += phase_lm_kernel_times(device, lm_launches)
     phase_lm_profile(params, device)
     del params
+
+    serve_s, serve_launches, spot_split = phase_cfu_serving(net_cpu, device)
+    added_s = (serve_s + phase_cfu_spot_times(net_cpu, device)
+               + phase_cfu_reliability_doctor(device))
+    say(f"[cfu-serve] phases 17-19: {added_s:.2f} s")
+    for e in entries:
+        if e["source"] == SOURCE:
+            e["launches_per_spot_check"] = dict(
+                spot_split, per_check=sum(spot_split.values()),
+                serving_runs=serve_launches)
     say(card_line())
     say("kernels " + json.dumps(entries))
     say(json.dumps({"kernels": entries}))

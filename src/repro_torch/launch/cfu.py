@@ -39,8 +39,20 @@ run prints per-core cycles, the steady-state frame interval, and the
 DRAM-port contention, and verifies ``executor.run_multistream``
 bit-exactly.
 
-``--protect``, ``--fault`` and ``--doctor`` are not ported yet (ROADMAP.md
-Queue 1 item 4): they exit with a message.
+``--protect`` stamps the reliability extension into the compiled
+stream(s) post-compile (``cfu.faults.protect_program``): instruction-word
+parity, a CHK_WGT checksum after every weight load, and CHK_SAVE/CHK_CMP
+guards on cross-phase feature maps. The protected stream verifies
+bit-exactly against the same reference — detection never perturbs data —
+and the timing report is cycle-identical (the checksum sweep pipelines
+behind the streamer; only the ``check_bytes`` counter grows). ``--fault
+SPACE`` then runs a small seeded injection demo (8 single-bit faults in
+``weights``/``instr``/``sram``/``dram``) and prints the outcome taxonomy:
+with ``--protect``, weight and instruction faults are all *detected*;
+without, they land as *sdc*/*masked*/*crashed*. Both run on the host
+and need ``--backend golden``. ``--doctor`` prints the cycle attribution
+and the ranked what-ifs of each compiled stream, priced by the same cost
+model as the timing row.
 
 ``--pe`` sets the engine counts baked into the stream's CFG_PE word
 (default: the paper's 9,9,56). With ``--streams N``, ``--pe-per-core``
@@ -80,10 +92,6 @@ from repro_torch.cfu.trace import Tracer
 from repro_torch.configs.vww import VWW
 from repro_torch.core import dsc, quant
 from repro_torch.core.fusion import Schedule, modeled_cycles, run_block
-
-NOT_PORTED = ("{} is not ported yet: ROADMAP.md Queue 1 item 4 "
-              "(cfu/serve, faults.py, doctor.py, ...)")
-
 
 def _single_block(seed: int, name: str):
     layer = {n: (s, hw) for n, s, hw in PAPER_LAYERS}[name]
@@ -125,6 +133,33 @@ def _dump_asm(prog, path: str):
         else:
             f.write(isa.program_to_asm(prog))
     print(f"# assembly ({len(prog)} instrs) -> {path}")
+
+
+def _protect(prog, params, args):
+    """Stamp the reliability extension when ``--protect`` is given."""
+    if not args.protect:
+        return prog
+    from repro_torch.cfu import faults
+    prog = faults.protect_program(prog, params, activation_checksums=True)
+    n = (sum(len(p) for p in prog.streams)
+         if isinstance(prog, MultiStreamProgram) else len(prog))
+    print(f"# protected: parity + checksums stamped ({n} instrs)")
+    return prog
+
+
+def _fault_demo(prog, params, x_q, args):
+    """Seeded single-bit injection demo: 8 faults in --fault's space."""
+    from repro_torch.cfu import faults
+    res = faults.run_campaign(prog, params, x_q, spaces=(args.fault,),
+                              n_faults=8, seed=args.seed, protect=False)
+    if res["skipped_spaces"]:
+        print(f"# fault demo: stream maps no {args.fault.upper()} — "
+              "nothing to upset")
+        return
+    tally = res["cells"][f"{args.fault}|x1"]
+    outcome = " ".join(f"{k}={v}" for k, v in tally.items() if v)
+    print(f"# fault demo ({args.fault}, 8 single-bit flips, "
+          f"protect={'on' if args.protect else 'off'}): {outcome}")
 
 
 def _describe_schedule(prog):
@@ -172,6 +207,31 @@ def _emit_model_trace(tracer, prog, args, batch: int):
         tracer.process_name(100, "core0-model (cycle time)")
         BatchCostModel(prog, args.pipeline, handoff_sync_cycles=hsc
                        ).emit_trace(tracer, batch, pid=100)
+
+
+def _doctor_report(prog, args):
+    """``--doctor``: cycle-bound attribution + ranked what-ifs for the
+    compiled stream, priced by the same model as the timing row above
+    (``python -m repro_torch.launch.doctor`` is the standalone, deeper
+    view)."""
+    from repro_torch.cfu import doctor
+    hsc = args.handoff_sync_cycles
+    if isinstance(prog, MultiStreamProgram):
+        attr = doctor.attribute_multistream(
+            prog, args.pipeline, batch=args.batch,
+            handoff_sync_cycles=hsc)
+        rows = doctor.what_if_multistream(
+            prog, args.pipeline, batch=args.batch,
+            handoff_sync_cycles=hsc)
+    else:
+        attr = doctor.attribute(prog, args.pipeline,
+                                handoff_sync_cycles=hsc)
+        rows = doctor.what_if(prog, args.pipeline,
+                              handoff_sync_cycles=hsc)
+    print("\n".join(doctor.attribution_lines(attr)))
+    print("\n".join(doctor.what_if_lines(rows)))
+    return {"attribution": attr.to_json(),
+            "what_ifs": [r.to_json() for r in rows]}
 
 
 def _report_of(prog, args):
@@ -265,6 +325,7 @@ def _run_vww(args, pe: PEConfig, schedules, tracer=None):
                                    pipeline=args.pipeline)
         if sched == AUTO_SCHEDULE:
             print(f"# auto picks: {_describe_schedule(prog)}")
+        prog = _protect(prog, params, args)
         if args.asm:
             _dump_asm(prog, args.asm)
         rep, cycles = _report_of(prog, args)
@@ -286,6 +347,8 @@ def _run_vww(args, pe: PEConfig, schedules, tracer=None):
                 raise SystemExit(
                     f"BIT-EXACTNESS FAILURE under {sched} "
                     f"(batch1={v1}, batch{batch}={vn})")
+            if args.fault:
+                _fault_demo(prog, params, imgs_q[0], args)
         label = sched if isinstance(sched, str) else sched.value
         dram, sram = rep.dram_bytes, rep.sram_bytes
         # MultiStreamReport has no sram_buffer_bytes (scratch is per-core)
@@ -295,6 +358,9 @@ def _run_vww(args, pe: PEConfig, schedules, tracer=None):
               f"{sw_cycles / cycles:.1f},{dram},{sram},{sbuf},"
               f"{rep.energy_pj['total'] / 1e6:.2f},{v1},{vn},{exec_s:.2f}")
         results["schedules"][label] = _asdict(rep, prog)
+        if args.doctor:
+            results["schedules"][label]["doctor"] = \
+                _doctor_report(prog, args)
     return results
 
 
@@ -332,6 +398,7 @@ def _run_chain(args, pe: PEConfig, schedules, tracer=None):
                                pipeline=args.pipeline)
         if sched == AUTO_SCHEDULE:
             print(f"# auto picks: {_describe_schedule(prog)}")
+        prog = _protect(prog, params, args)
         if args.asm:
             _dump_asm(prog, args.asm)
         rep, cycles = _report_of(prog, args)
@@ -354,6 +421,8 @@ def _run_chain(args, pe: PEConfig, schedules, tracer=None):
             verified = bool(np.array_equal(y, ref.cpu().numpy()))
             if not verified:
                 raise SystemExit(f"BIT-EXACTNESS FAILURE under {sched}")
+            if args.fault:
+                _fault_demo(prog, params, x_q, args)
         dram, sram = rep.dram_bytes, rep.sram_bytes
         # MultiStreamReport has no sram_buffer_bytes (scratch is per-core)
         sbuf = getattr(rep, "sram_buffer_bytes",
@@ -362,6 +431,9 @@ def _run_chain(args, pe: PEConfig, schedules, tracer=None):
               f"{sw_cycles / cycles:.1f},{dram},{sram},{sbuf},"
               f"{rep.energy_pj['total'] / 1e6:.2f},{verified},{exec_s:.2f}")
         results["schedules"][sched] = _asdict(rep, prog)
+        if args.doctor:
+            results["schedules"][sched]["doctor"] = \
+                _doctor_report(prog, args)
     return results
 
 
@@ -413,12 +485,20 @@ def main(argv=None):
     ap.add_argument("--no-verify", action="store_true",
                     help="skip the bit-exact golden-model execution")
     ap.add_argument("--protect", action="store_true",
-                    help="not ported yet (ROADMAP.md Queue 1 item 4)")
+                    help="stamp the reliability extension (instruction "
+                         "parity + weight/activation checksum words) into "
+                         "the compiled stream; outputs stay bit-exact")
     ap.add_argument("--fault", default=None,
                     choices=["weights", "instr", "sram", "dram"],
-                    help="not ported yet (ROADMAP.md Queue 1 item 4)")
+                    help="seeded single-bit fault-injection demo in this "
+                         "space (8 flips; prints the outcome taxonomy; "
+                         "needs verification on and --streams 1)")
     ap.add_argument("--doctor", action="store_true",
-                    help="not ported yet (ROADMAP.md Queue 1 item 4)")
+                    help="print the perf-doctor view per schedule: cycle-"
+                         "bound attribution (categories sum to the modeled "
+                         "total bit-exactly) and the ranked what-if table; "
+                         "`python -m repro_torch.launch.doctor` is the "
+                         "standalone, deeper version")
     ap.add_argument("--asm", default=None,
                     help="dump the text assembly of the stream to this path")
     ap.add_argument("--json", default=None,
@@ -434,9 +514,18 @@ def main(argv=None):
                          "HANDOFF_SYNC_CYCLES = 64)")
     args = ap.parse_args(argv)
 
-    for flag in ("protect", "fault", "doctor"):
-        if getattr(args, flag):
-            raise SystemExit(NOT_PORTED.format(f"--{flag}"))
+    if args.protect and args.backend == "fast":
+        raise SystemExit("--protect needs --backend golden (the fast path "
+                         "does not model the check words)")
+    if args.fault:
+        if args.no_verify:
+            raise SystemExit("--fault needs verification on (the golden "
+                             "output is the SDC oracle)")
+        if args.streams != 1:
+            raise SystemExit("--fault wants --streams 1 (the campaign "
+                             "injects into one encoded stream)")
+        if args.backend == "fast":
+            raise SystemExit("--fault needs --backend golden")
     resolve_device(args.device)
 
     pe = _parse_pe(args.pe)

@@ -266,17 +266,62 @@ def test_cli_fast_backend_on_cpu():
     assert row[0] == "fused" and row[-3:-1] == ["True", "True"], out.stdout
 
 
-def test_cli_unported_flags_exit_naming_roadmap():
+def _cli_lines(text):
+    """CLI output with the wall-clock column (exec_s) of each row cut."""
+    return [ln.rsplit(",", 1)[0] if ln and not ln.startswith("#") else ln
+            for ln in text.splitlines()]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--block", "3rd", "--protect", "--fault", "weights"],
+    ["--block", "3rd", "--protect", "--fault", "instr", "--doctor"],
+    ["--net", "mobilenetv2", "--hw", "12", "--streams", "2", "--doctor",
+     "--protect"],
+    ["--network", "vww", "--img-hw", "24", "--schedule", "all", "--protect",
+     "--doctor", "--batch", "2"],
+], ids=["block-weights", "block-instr-doctor", "chain-2core-doctor",
+        "vww-all-doctor"])
+def test_cli_protect_fault_doctor_lines(argv, capsys):
+    """--protect, --fault and --doctor on the CPU print the reference CLI's
+    lines (with protection on, every fault is detected whatever the
+    weights, which differ between the packages)."""
+    from repro.launch import cfu as jcli
+    from repro_torch.launch import cfu as tcli
+    jcli.main(argv)
+    want = _cli_lines(capsys.readouterr().out)
+    tcli.main(["--device", "cpu"] + argv)
+    got = _cli_lines(capsys.readouterr().out)
+    assert got == want
+    rows = [ln.split(",") for ln in got
+            if ln and not ln.startswith(("#", "schedule,", "category,",
+                                         "what_if,"))
+            and "," in ln and ln.split(",")[0] in SCHEDULES]
+    assert rows and all("True" in r for r in rows)
+    if "--fault" in argv:
+        assert any("detected=8" in ln for ln in got), got
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--protect"], "--protect needs --backend golden"),
+    (["--fault", "weights"], "--fault needs --backend golden"),
+    (["--trace", "t.json"], "--trace needs --backend golden"),
+])
+def test_cli_fast_backend_refuses_check_words(flags, match):
     from repro_torch.launch import cfu
-    for flag in (["--protect"], ["--fault", "weights"], ["--doctor"]):
-        with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item 4"):
-            cfu.main(["--device", "cpu", "--block", "3rd"] + flag)
+    with pytest.raises(SystemExit, match=match):
+        cfu.main(["--device", "cpu", "--block", "3rd", "--backend", "fast"]
+                 + flags)
 
 
 def test_cfu_modules_import_without_jax():
     code = ("import sys; sys.modules['jax'] = None\n"
             "import repro_torch.cfu, repro_torch.cfu.fastpath, "
-            "repro_torch.launch.cfu, repro_torch.configs.vww\n"
+            "repro_torch.launch.cfu, repro_torch.configs.vww, "
+            "repro_torch.cfu.serve, repro_torch.cfu.faults, "
+            "repro_torch.cfu.doctor, repro_torch.roofline, "
+            "repro_torch.launch.serve_cfu, repro_torch.launch.doctor\n"
+            "import repro_torch.cfu.serve.check, "
+            "repro_torch.cfu.serve.planner, repro_torch.cfu.serve.report\n"
             "assert not any(m == 'repro' or m.startswith('repro.') "
             "for m in sys.modules)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
