@@ -8,8 +8,10 @@ error: int8 MobileNetV2-VWW inference through the hand-written fused DSC
 kernel, the same network compiled for the CFU and run by the CFU fast path
 (whose fused and row-tile stages launch the same kernel), gemma2-9b
 serving (prefill + greedy decode) through the hand-written flash-attention
-and fused-FFN kernels, and the CFU serving simulator, whose spot checks run
-the fast path and the network on the card. Phases:
+and fused-FFN kernels, the CFU serving simulator, whose spot checks run
+the fast path and the network on the card, and the rest of the dense LM
+family (qwen3-14b, glm4-9b, qwen2-72b at reduced depth and internvl2-1b
+served, hubert-xlarge's forward) through the same two kernels. Phases:
 
 1. the card's name and power limit (nvidia-smi); no CUDA device -> fail;
 2. build every kernel from src/repro_torch/kernels/csrc (one nvcc each, all
@@ -112,7 +114,31 @@ the fast path and the network on the card. Phases:
 19. the reliability extension and the doctor through their CLIs:
    ``launch.cfu --network vww --protect --fault weights`` (every fault
    detected, verified), ``launch.cfu --network vww --doctor`` and
-   ``launch.doctor --network vww`` (the categories sum to the total).
+   ``launch.doctor --network vww`` (the categories sum to the total);
+20. the new LM kernel shapes vs plain versions on the card: flash at
+   hubert's (d 80, no causal mask), internvl2's (d 64, 16:2 GQA, T 768) and
+   glm4's (d 128, 32:2 GQA) shapes in f32 and bf16; the bf16 FFN at d_model
+   4096, 5120 and 8192 (glm4, qwen3, qwen2: d_model cut into slices of one
+   cluster each) with each config's d_ff at T 4, 2048 and 1000, and in f32 at
+   T 7; the launcher's plans at these shapes are checked in phase 2;
+21. the other dense decoders, one at a time, each at full width:
+   ``launch.serve.main(["--arch", name, "--batch", "4", "--prompt-len",
+   "512", "--gen", "16"])`` for qwen3-14b, glm4-9b and internvl2-1b (its
+   256 patch embeddings drawn from the seed, decode positions after them)
+   at full depth and qwen2-72b at 32 of its 80 layers (``--layers 32``: 145
+   GB of bf16 weights do not fit one 80 GB card), every flash and FFN call
+   held to its plain version; launches per prefill (n_layers flash and FFN)
+   and per decode step (n_layers FFN); then the served weights: prefill and
+   decode-step ms on the host clock, device busy and idle share (profiler),
+   and a repeated prefill's greedy tokens equal to the served first ones;
+22. hubert-xlarge at full width and depth: ``lm.forward(frames=...)`` on B 4
+   x 512 seeded frames, every call held to its plain version, 48 flash and
+   48 FFN launches, finite logits; the forward timed and profiled;
+23. each dense arch's flash and FFN shapes timed (CUDA graph) beside the
+   plain version, the bound, ``torch.compile(flex_attention)`` (flash) or the
+   unfused bf16 chain (FFN), with the FFN plan's slices, resident clusters and
+   the operations it does over the ones needed;
+24. one summary line per dense arch: prefill ms, decode tok/s, busy, idle.
 
 The last stdout line is {"ok": true, "device": {...}}; the line before it is
 the {"kernels": [...]} record, whose DSC rows also carry the kernel's
@@ -302,6 +328,7 @@ def phase_build():
     cfg = registry.get("gemma2-9b")
     shapes = [(t, cfg.d_model, cfg.d_ff) for t in (1, 4, 77, 1000, 2048)]
     shapes += [(t, d, f) for t, d, f, *_ in FFN_CASES]
+    shapes += dense_ffn_shapes()
     for dtype in (torch.bfloat16, torch.float32):
         for t, d, f in shapes:
             pl = fused_ffn.plan(t, d, f, dtype, n_sm)
@@ -317,6 +344,18 @@ def phase_build():
             f"{pl.smem_bytes} B, workspace {pl.ws_bytes} B; == the launcher's; "
             f"{resident} clusters resident at once, so "
             f"{-(-pl.grid[1] * pl.grid[2] // resident)} waves")
+    for name in WIDE_ARCHS:
+        wide = registry.get(name)
+        for t in (LM_BATCH * LM_PROMPT, LM_BATCH):
+            pl = fused_ffn.plan(t, wide.d_model, wide.d_ff, torch.bfloat16,
+                                n_sm)
+            resident = fused_ffn.max_active_clusters(t, wide.d_model,
+                                                     wide.d_ff, n_sm)
+            say(f"[build] fused_ffn plan {name} T {t}: {pl.slices} d_model "
+                f"slices of a cluster of {pl.cluster}, {pl.cols} columns per "
+                f"block, grid {pl.grid}, {pl.groups} d_ff groups, shared "
+                f"memory {pl.smem_bytes} B, workspace {pl.ws_bytes} B; == "
+                f"the launcher's; {resident} clusters resident at once")
 
 
 def sass_counts(lib_path: Path, opcode: str):
@@ -536,13 +575,13 @@ def phase_kernel_times(net_cpu, device, launches_per_forward, batch=256):
     return entries
 
 
-def host_and_device_ms(fn, reps=5):
+def host_and_device_ms(fn, reps=5, warm=3):
     """(host-clock ms per ``fn()`` call, unprofiled; device-busy ms per call
     from torch.profiler (CUPTI) or None where it records no device time;
     device activities per call; {name: device ms per call})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1075,16 +1114,17 @@ def rand(gen, shape, dtype, scale=1.0, device="cuda"):
             * scale).to(dtype)
 
 
-def cpu_attention_ref(q, k, v, **kw):
-    """The plain attention on the CPU. In float32 it is computed in float64
-    and cast to float32: the card's kernel is deterministic and the host's
-    float32 order of sums is no better a reference than the kernel's
-    (probes/flash_f32_repeat.py)."""
-    q, k, v = q.cpu(), k.cpu(), v.cpu()
-    if q.dtype == torch.float32:
-        return ref.attention_ref(q.double(), k.double(), v.double(),
-                                 **kw).float()
-    return ref.attention_ref(q, k, v, **kw)
+def cpu_plain(fn, *tensors, **kw):
+    """A plain version on the CPU. In float32 it is computed in float64 and
+    cast to float32: the card's kernel is deterministic, and the host's
+    float32 products (their order of sums, and whatever precision the host's
+    BLAS picks for float32) are no better a reference than the kernel's
+    (probes/flash_f32_repeat.py). ``None`` arguments pass through."""
+    ts = [None if t is None else t.cpu() for t in tensors]
+    dtype = next(t.dtype for t in ts if t is not None)
+    if dtype != torch.float32:
+        return fn(*ts, **kw)
+    return fn(*(None if t is None else t.double() for t in ts), **kw).float()
 
 
 def phase_lm_kernel_vs_plain(device):
@@ -1107,7 +1147,7 @@ def phase_lm_kernel_vs_plain(device):
             name = f"flash {tq}x{tk}x{d} {kw} {dtype}"
             _, rel = close(got, ref.attention_ref(q, k, v, **kw), tol,
                            name + " card")
-            close(got.cpu(), cpu_attention_ref(q, k, v, **kw), tol,
+            close(got.cpu(), cpu_plain(ref.attention_ref, q, k, v, **kw), tol,
                   name + " CPU")
             worst = max(worst, rel) if dtype == torch.bfloat16 else worst
             n += 1
@@ -1154,9 +1194,8 @@ def phase_lm_kernel_vs_plain(device):
             name = f"ffn {t}x{d}x{f} {act} gated={gated} {dtype}"
             _, rel = close(got, ref.fused_ffn_ref(x, wg, wu, wd, act=act), tol,
                            name + " card")
-            close(got.cpu(), ref.fused_ffn_ref(
-                x.cpu(), None if wg is None else wg.cpu(), wu.cpu(), wd.cpu(),
-                act=act), tol, name + " CPU")
+            close(got.cpu(), cpu_plain(ref.fused_ffn_ref, x, wg, wu, wd,
+                                       act=act), tol, name + " CPU")
             worst = max(worst, rel) if dtype == torch.bfloat16 else worst
             n += 1
     cfg = registry.get("gemma2-9b")
@@ -1224,6 +1263,14 @@ def reset_lm_counts():
 
 def lm_counts():
     return flash_attention.LAUNCHES, fused_ffn.LAUNCHES
+
+
+def tally(by_t, fn):
+    """``fn`` (an FFN call) counting its calls by token count."""
+    def counted(x, *a, **kw):
+        by_t[x.shape[0]] = by_t.get(x.shape[0], 0) + 1
+        return fn(x, *a, **kw)
+    return counted
 
 
 def greedy(logits, cfg):
@@ -1366,17 +1413,11 @@ def phase_lm_serve(device):
     must equal a direct prefill/decode_step greedy loop with the same
     seeded weights. Returns the launch counts of the serve run, with the
     FFN's split by token count."""
-    ffn_by_t = {}
-    real_ffn = ops.ffn
-
-    def tally(x, *a, **kw):
-        ffn_by_t[x.shape[0]] = ffn_by_t.get(x.shape[0], 0) + 1
-        return real_ffn(x, *a, **kw)
-
+    ffn_by_t, real_ffn = {}, ops.ffn
     argv = ["--arch", "gemma2-9b", "--batch", str(LM_BATCH), "--prompt-len",
             str(LM_PROMPT), "--gen", str(LM_GEN)]
     reset_lm_counts()
-    ops.ffn = tally
+    ops.ffn = tally(ffn_by_t, real_ffn)
     try:
         gen_tokens = serve.main(argv)
     finally:
@@ -1409,17 +1450,19 @@ def phase_lm_serve(device):
         LM_BATCH * LM_PROMPT, 0), "ffn_decode": ffn_by_t.get(LM_BATCH, 0)}
 
 
-def flash_bound(b, p, h, hkv, d, item=2):
-    """Causal attention: QK^T and PV over the lower triangle (halved), q, k,
-    v and o each moved once."""
-    flops = 4 * b * h * p * p * d / 2
+def flash_bound(b, p, h, hkv, d, item=2, causal=True):
+    """Attention: QK^T and PV (over the lower triangle, halved, when
+    causal), q, k, v and o each moved once."""
+    flops = 4 * b * h * p * p * d / (2 if causal else 1)
     nbytes = item * (2 * b * p * h * d + 2 * b * p * hkv * d)
     return flops, nbytes
 
 
-def ffn_bound(t, d, f, item=2):
-    """Gated FFN: three matmuls; x, the three weights and y moved once."""
-    return 6 * t * d * f, item * (2 * t * d + 3 * d * f)
+def ffn_bound(t, d, f, item=2, gated=True):
+    """Gated FFN: three matmuls (ungated: two); x, the weights and y moved
+    once."""
+    n_w = 3 if gated else 2
+    return 2 * n_w * t * d * f, item * (2 * t * d + n_w * d * f)
 
 
 def lm_row(name, source, replaces, launches, err_rel, ms, plain_ms, flops,
@@ -1441,13 +1484,13 @@ def lm_row(name, source, replaces, launches, err_rel, ms, plain_ms, flops,
             **extra}
 
 
-def flex_attention_library(q, k, v, want, *, window, softcap):
+def flex_attention_library(q, k, v, want, *, window, softcap, causal=True):
     """The library yardstick for the flash kernel: one call of
     ``torch.compile(flex_attention)`` with the logit softcap as its
-    ``score_mod``, the causal window as its block mask and GQA, on the same
-    inputs in its (B, H, T, d) layout. It is held to the plain version and
-    timed here by CUDA graph; the port never calls it. Returns (ms or None,
-    note)."""
+    ``score_mod``, the causal window as its block mask (none without a
+    causal mask) and GQA, on the same inputs in its (B, H, T, d) layout. It
+    is held to the plain version and timed here by CUDA graph; the port
+    never calls it. Returns (ms or None, note)."""
     build_dir = Path(__file__).resolve().parent / "build"
     for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
                      ("TRITON_CACHE_DIR", "triton")):
@@ -1466,12 +1509,14 @@ def flex_attention_library(q, k, v, want, *, window, softcap):
         from torch.nn.attention.flex_attention import (create_block_mask,
                                                        flex_attention)
         inductor_config.compile_threads = 1   # no compile worker processes
-        mask = create_block_mask(mask_mod, None, None, p, p,
-                                 device=q.device)
+        mask = (create_block_mask(mask_mod, None, None, p, p, device=q.device)
+                if causal else None)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         flex = torch.compile(flex_attention)
-        call = lambda: flex(qt, kt, vt, score_mod=score_mod, block_mask=mask,
-                            scale=d ** -0.5, enable_gqa=True)
+        call = lambda: flex(qt, kt, vt,
+                            score_mod=None if softcap is None else score_mod,
+                            block_mask=mask, scale=d ** -0.5,
+                            enable_gqa=h != k.shape[2])
         err, rel = close(call().transpose(1, 2), want, BF16_TOL,
                          "flex_attention at the path shape")
         ms = time_ms(call, 10, 3)
@@ -1479,9 +1524,12 @@ def flex_attention_library(q, k, v, want, *, window, softcap):
         torch.cuda.synchronize()
         return None, (f"torch {torch.__version__} flex_attention failed: "
                       f"{type(e).__name__}: {str(e)[:300]}")
+    parts = [part for part, on in (
+        ("softcap score_mod", softcap is not None),
+        ("causal window block mask", causal), ("GQA", h != k.shape[2])) if on]
     return ms, (f"torch.compile(flex_attention), torch {torch.__version__}, "
-                f"softcap score_mod, causal window block mask, GQA; max "
-                f"|diff| {err}, relative norm {rel:.6e} to the plain version")
+                f"{', '.join(parts) or 'no mask'}; max |diff| {err}, "
+                f"relative norm {rel:.6e} to the plain version")
 
 
 def phase_lm_kernel_times(device, launches):
@@ -1567,11 +1615,18 @@ def phase_lm_kernel_times(device, launches):
     return rows
 
 
-def unfused_chain(x, wg, wu, wd):
-    """The gated FFN as cuBLAS computes it unfused: three bf16 matmuls
-    with the (T, d_ff) g, u and h in device memory, the gelu mix between."""
-    g = torch.matmul(x, wg)
-    h = torch.nn.functional.gelu(g, approximate="tanh") * torch.matmul(x, wu)
+CHAIN_ACTS = {"gelu": lambda g: torch.nn.functional.gelu(g, approximate="tanh"),
+              "silu": torch.nn.functional.silu}
+
+
+def unfused_chain(x, wg, wu, wd, act="gelu"):
+    """The FFN as cuBLAS computes it unfused: three bf16 matmuls (two
+    ungated, ``wg`` None) with the (T, d_ff) g, u and h in device memory,
+    the mix between."""
+    fn = CHAIN_ACTS[act]
+    if wg is None:
+        return torch.matmul(fn(torch.matmul(x, wu)), wd)
+    h = fn(torch.matmul(x, wg)) * torch.matmul(x, wu)
     return torch.matmul(h, wd)
 
 
@@ -1655,6 +1710,356 @@ def phase_lm_profile(params, device, reps=3):
             say(f"[lm-profile]   {us / 1e3 / reps:.6f} ms  {op[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# The other dense archs: qwen3-14b, glm4-9b, qwen2-72b and internvl2-1b
+# served through launch.serve, hubert-xlarge's forward on frames
+# ---------------------------------------------------------------------------
+
+DENSE_DECODERS = ("qwen3-14b", "glm4-9b", "qwen2-72b", "internvl2-1b")
+ENCODER = "hubert-xlarge"
+DENSE_ARCHS = DENSE_DECODERS + (ENCODER,)
+# qwen2-72b holds 145 GB of bf16 weights at its 80 layers: one 80 GB card
+# takes 32 layers (61 GB with the embedding and the head), at full width.
+DEPTH_CUT = {"qwen2-72b": (32, "80 layers are 145 GB of bf16 weights, more "
+                               "than one 80 GB card; 32 layers are 61 GB")}
+# The new flash shapes, held to the plain version in f32 and bf16:
+# (name, b, t, h, hkv, d, causal)
+DENSE_FLASH_CHECKS = [("hubert d80 non-causal", 4, 512, 16, 16, 80, False),
+                      ("internvl2 d64 16:2 T768", 4, 768, 16, 2, 64, True),
+                      ("glm4 d128 32:2", 4, 512, 32, 2, 128, True)]
+WIDE_ARCHS = ("glm4-9b", "qwen3-14b", "qwen2-72b")   # d_model past 3584
+
+
+def dense_cfg(name):
+    """The arch at the depth the card runs, with the kernel disciplines."""
+    full = registry.get(name)
+    layers = DEPTH_CUT.get(name, (full.n_layers, None))[0]
+    return dataclasses.replace(full, n_layers=layers, attn_impl="kernel",
+                               block_impl="fused")
+
+
+def prefix_len(cfg) -> int:
+    return cfg.n_patches if cfg.frontend == "vision" else 0
+
+
+def dense_ffn_shapes():
+    """(T, d_model, d_ff) of every FFN launch the dense phases make."""
+    shapes = []
+    for name in DENSE_ARCHS:
+        cfg = registry.get(name)
+        shapes.append((LM_BATCH * (prefix_len(cfg) + LM_PROMPT), cfg.d_model,
+                       cfg.d_ff))
+        if name != ENCODER:
+            shapes.append((LM_BATCH, cfg.d_model, cfg.d_ff))
+        if name in WIDE_ARCHS:
+            shapes.append((1000, cfg.d_model, cfg.d_ff))
+    return shapes
+
+
+def ffn_work_factor(t, d, f, gated, n_sm):
+    """The operations the bf16 plan does over the ones the FFN needs: the
+    expansion once per d_model slice, the projection over every block's
+    columns (T's padding to 64 rows not counted)."""
+    pl = fused_ffn.plan(t, d, f, torch.bfloat16, n_sm)
+    exp = (2 if gated else 1) * d
+    return (pl.slices * exp + pl.grid[0] * pl.cols) / (exp + d)
+
+
+def phase_dense_kernel_vs_plain(device):
+    """The new shapes of both LM kernels against their plain versions on the
+    card: flash at hubert's, internvl2's and glm4's shapes in f32 and bf16;
+    the FFN at d_model 4096, 5120 and 8192 with each config's d_ff, at T 4,
+    2048 and a ragged 1000 in bf16, and at T 7 in f32."""
+    gen = torch.Generator(device=device).manual_seed(41)
+    n, worst = 0, 0.0
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for name, b, t, h, hkv, d, causal in DENSE_FLASH_CHECKS:
+            q = rand(gen, (b, t, h, d), dtype, device=device)
+            k, v = (rand(gen, (b, t, hkv, d), dtype, device=device)
+                    for _ in range(2))
+            got = ops.mha(q, k, v, n_kv_heads=hkv, causal=causal)
+            _, rel = close(got, ref.mha_ref(q, k, v, causal=causal), tol,
+                           f"flash {name} {dtype}")
+            worst = max(worst, rel) if dtype == torch.bfloat16 else worst
+            n += 1
+    say(f"[dense-kernel] flash_attention == mha_ref on {n} new shapes "
+        f"({', '.join(c[0] for c in DENSE_FLASH_CHECKS)}; f32 2e-5, bf16 2e-2 "
+        f"and relative norm < {BF16_NORM_TOL}: largest bf16 relative norm "
+        f"{worst:.6e})")
+    n, worst = 0, 0.0
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    for name in WIDE_ARCHS:
+        cfg = registry.get(name)
+        d, f = cfg.d_model, cfg.d_ff
+        cases = [(torch.bfloat16, BF16_TOL, (4, 2048, 1000))]
+        if name == WIDE_ARCHS[-1]:
+            cases.append((torch.float32, F32_TOL, (7,)))
+        for dtype, tol, ts in cases:
+            wg, wu = (rand(gen, (d, f), dtype, d ** -0.5, device)
+                      for _ in range(2))
+            wd = rand(gen, (f, d), dtype, f ** -0.5, device)
+            for t in ts:
+                x = rand(gen, (t, d), dtype, device=device)
+                got = ops.ffn(x, wg, wu, wd, act=cfg.act)
+                _, rel = close(got, ref.fused_ffn_ref(x, wg, wu, wd,
+                                                      act=cfg.act), tol,
+                               f"ffn {name} T{t} {dtype}")
+                worst = max(worst, rel) if dtype == torch.bfloat16 else worst
+                n += 1
+            del wg, wu, wd
+        pl = fused_ffn.plan(2048, d, f, torch.bfloat16, n_sm)
+        say(f"[dense-kernel] fused_ffn {name} d_model {d} d_ff {f}: "
+            f"{pl.slices} slices of a cluster of {pl.cluster}, "
+            f"{pl.cols} columns per block; the plan does "
+            f"{ffn_work_factor(2048, d, f, True, n_sm):.4f}x the FFN's "
+            f"operations")
+    torch.cuda.empty_cache()
+    say(f"[dense-kernel] fused_ffn == fused_ffn_ref on {n} wide shapes (f32 "
+        f"2e-5, bf16 2e-2 and relative norm < {BF16_NORM_TOL}: largest bf16 "
+        f"relative norm {worst:.6e})")
+
+
+def time_path(tag, fns, reps):
+    """Host-clock ms (unprofiled) and device-busy ms (torch.profiler) per
+    call of each (name, fn); returns {name: (host_ms, busy_ms)}."""
+    out = {}
+    for name, fn in fns:
+        host_ms, busy_ms, n_act, by_name = host_and_device_ms(fn, reps, 1)
+        out[name] = (host_ms, busy_ms)
+        say(f"[{tag}] {name}: {busy_line(host_ms, busy_ms, n_act)}")
+        for op, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:4]:
+            say(f"[{tag}]   {ms:.6f} ms  {op[:90]}")
+    return out
+
+
+def phase_dense_serve(name, device):
+    """One dense decoder through the user's entry point: ``launch.serve
+    --arch name`` (``--layers`` where the card cannot hold the full depth)
+    at B 4, P 512, 16 generated tokens, every flash and FFN call held to
+    its plain version; the launches per prefill and per decode step; then
+    the served weights timed: a prefill and a decode step on the host
+    clock, and the device-busy time of a profiled repeat. Returns the
+    launch counts and times."""
+    cfg = dense_cfg(name)
+    full_layers = registry.get(name).n_layers
+    layers, off = cfg.n_layers, prefix_len(cfg)
+    cut = DEPTH_CUT.get(name, (None, None))[1]
+    say(f"[dense] {name}: {layers} of {full_layers} layers ("
+        + (f"depth cut: {cut}" if cut else "full depth")
+        + f"), full width: d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
+        f"{cfg.n_heads_padded} query ({cfg.n_heads} + {cfg.head_pad} pad) / "
+        f"{cfg.n_kv_heads} KV heads of {cfg.head_dim_}; {card_line()}")
+    argv = ["--arch", name, "--batch", str(LM_BATCH), "--prompt-len",
+            str(LM_PROMPT), "--gen", str(LM_GEN)]
+    if layers != full_layers:
+        argv += ["--layers", str(layers)]
+    held, by_t = {}, {}
+    real_init = lm.init_params
+
+    def keep(*a, **kw):
+        held["params"] = real_init(*a, **kw)
+        return held["params"]
+
+    t0 = time.perf_counter()
+    with Checked(BF16_TOL) as chk:
+        ops.ffn = tally(by_t, ops.ffn)
+        lm.init_params = keep
+        try:
+            reset_lm_counts()
+            gen_tokens = serve.main(argv)
+            torch.cuda.synchronize()
+            flash_n, ffn_n = lm_counts()
+        finally:
+            lm.init_params = real_init
+    serve_s = time.perf_counter() - t0
+    t_pre = LM_BATCH * (off + LM_PROMPT)
+    counts = {"flash": flash_n, "ffn_prefill": by_t.get(t_pre, 0),
+              "ffn_decode": by_t.get(LM_BATCH, 0)}
+    want = {"flash": layers, "ffn_prefill": layers,
+            "ffn_decode": layers * (LM_GEN - 1)}
+    check(counts == want and ffn_n == layers * LM_GEN,
+          f"{name}: serve launched {counts} (ffn {ffn_n}, by T {by_t}), "
+          f"expected {want}")
+    check(gen_tokens.shape == (LM_BATCH, LM_GEN)
+          and 0 <= gen_tokens.min() and gen_tokens.max() < cfg.vocab,
+          f"{name}: served tokens {gen_tokens.shape}")
+    say(f"[dense] {name} served in {serve_s:.3f} s (seeding and the plain "
+        f"checks included): launches (flash, ffn) ({flash_n}, {ffn_n}): "
+        f"{layers} flash and {layers} FFN per prefill (FFN T {t_pre}), "
+        f"{layers} FFN per decode step x {LM_GEN - 1}; every call within "
+        f"{BF16_TOL} of its plain version and relative norm "
+        f"{BF16_NORM_TOL} (max |diff| flash {chk.errs['flash']}, ffn "
+        f"{chk.errs['ffn']}; relative norm flash {chk.rels['flash']:.6e}, "
+        f"ffn {chk.rels['ffn']:.6e})")
+
+    params = held.pop("params")
+    rng = np.random.default_rng(0)   # serve's --seed: its prompts, patches
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT))).to(device)
+    patches = (torch.from_numpy(rng.standard_normal(
+        (LM_BATCH, off, cfg.d_model)).astype(np.float32)).to(device) * 0.02
+        if off else None)
+    state = {}
+
+    def do_prefill():
+        state["logits"], state["cache"] = lm.prefill(
+            params, cfg, prompts, patches=patches,
+            max_len=off + LM_PROMPT + LM_GEN)
+
+    def do_decode():
+        lm.decode_step(params, cfg, state["cache"],
+                       greedy(state["logits"], cfg), off + LM_PROMPT)
+
+    times = time_path(f"dense {name}", (("prefill", do_prefill),
+                                        ("decode step", do_decode)), 2)
+    check(np.array_equal(greedy(state["logits"], cfg).cpu().numpy(),
+                         gen_tokens[:, 0]),
+          f"{name}: a repeated prefill's greedy tokens != the served first "
+          "tokens")
+    del params, state
+    torch.cuda.empty_cache()
+    return {"layers": layers, "full_layers": full_layers, "counts": counts,
+            "t_prefill": t_pre, "times": times}
+
+
+def phase_encoder_forward(device):
+    """hubert-xlarge at full width and depth: ``lm.forward`` on B 4 x 512
+    seeded frames, every flash (non-causal, d 80) and FFN (ungated gelu)
+    call held to its plain version; 48 of each per forward; then the
+    forward timed on the host clock and profiled."""
+    cfg = dense_cfg(ENCODER)
+    layers = cfg.n_layers
+    say(f"[dense] {ENCODER}: {layers} layers (full depth), full width: "
+        f"d_model {cfg.d_model}, d_ff {cfg.d_ff} ungated {cfg.act}, "
+        f"{cfg.n_heads} heads of {cfg.head_dim_}, causal {cfg.causal}; "
+        f"{card_line()}")
+    params = lm.init_params(cfg, 0, device)
+    frames = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (LM_BATCH, LM_PROMPT, cfg.d_model)).astype(np.float32)).to(device)
+    by_t = {}
+    with Checked(BF16_TOL) as chk:
+        ops.ffn = tally(by_t, ops.ffn)
+        reset_lm_counts()
+        logits = lm.forward(params, cfg, frames=frames)
+        torch.cuda.synchronize()
+        counts = lm_counts()
+    t = LM_BATCH * LM_PROMPT
+    check(counts == (layers, layers) and by_t == {t: layers},
+          f"{ENCODER}: forward launched (flash, ffn) {counts}, by T {by_t}")
+    check(logits.shape == (LM_BATCH, LM_PROMPT, cfg.vocab_padded())
+          and bool(torch.isfinite(logits).all()),
+          f"{ENCODER}: logits {tuple(logits.shape)} not finite or wrong shape")
+    say(f"[dense] {ENCODER} forward B{LM_BATCH} T{LM_PROMPT}: launches (flash, "
+        f"ffn) {counts}; every call within {BF16_TOL} of its plain version "
+        f"(max |diff| flash {chk.errs['flash']}, ffn {chk.errs['ffn']}; "
+        f"relative norm flash {chk.rels['flash']:.6e}, ffn "
+        f"{chk.rels['ffn']:.6e}); logits finite")
+    times = time_path(f"dense {ENCODER}", (
+        ("forward", lambda: lm.forward(params, cfg, frames=frames)),), 2)
+    del params, logits
+    torch.cuda.empty_cache()
+    return {"layers": layers, "full_layers": layers, "t_prefill": t,
+            "counts": {"flash": counts[0], "ffn_prefill": counts[1],
+                       "ffn_decode": 0}, "times": times}
+
+
+def phase_dense_kernel_times(device, runs):
+    """Each dense arch's flash and FFN shapes (bf16): CUDA-graph time, the
+    plain version's, the bound; flash beside ``torch.compile(
+    flex_attention)``, the FFN beside the unfused bf16 chain. Launches are
+    the model phases' counts."""
+    gen = torch.Generator(device=device).manual_seed(51)
+    bf16 = torch.bfloat16
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    rows = []
+    for name in DENSE_ARCHS:
+        cfg, run = dense_cfg(name), runs[name]
+        b, t = LM_BATCH, prefix_len(cfg) + LM_PROMPT
+        h, hkv, hd = cfg.n_heads_padded, cfg.n_kv_heads, cfg.head_dim_
+        q = rand(gen, (b, t, h, hd), bf16, device=device)
+        k, v = (rand(gen, (b, t, hkv, hd), bf16, device=device)
+                for _ in range(2))
+        kw = dict(causal=cfg.causal)
+        kern = lambda: ops.mha(q, k, v, n_kv_heads=hkv, **kw)
+        plain = lambda: ref.mha_ref(q, k, v, **kw)
+        want = plain()
+        err_rel = close(kern(), want, BF16_TOL, f"flash {name}")
+        ms, plain_ms = time_ms(kern, 10, 3), time_ms(plain, 10, 3)
+        library_ms, library_note = flex_attention_library(
+            q, k, v, want, window=None, softcap=None, causal=cfg.causal)
+        rows.append(lm_row(
+            f"flash_attention[{name} prefill B{b} P{t} H{h}/{hkv} d{hd}"
+            f"{'' if cfg.causal else ' non-causal'}]", FLASH_SOURCE,
+            FLASH_REPLACES, run["counts"]["flash"], err_rel, ms, plain_ms,
+            *flash_bound(b, t, h, hkv, hd, causal=cfg.causal), library_ms,
+            library_note, {"shape": [b, t, h, hkv, hd], "arch": name,
+                           "launches_per_prefill": run["layers"],
+                           "launches_per_decode_step": 0}))
+        del q, k, v, want
+        d, f = cfg.d_model, cfg.d_ff
+        wg = rand(gen, (d, f), bf16, d ** -0.5, device) if cfg.gated else None
+        wu = rand(gen, (d, f), bf16, d ** -0.5, device)
+        wd = rand(gen, (f, d), bf16, f ** -0.5, device)
+        phases = [("prefill", run["t_prefill"], run["counts"]["ffn_prefill"])]
+        if name != ENCODER:
+            phases.append(("decode", b, run["counts"]["ffn_decode"]))
+        for phase, tt, n_launch in phases:
+            x = rand(gen, (tt, d), bf16, device=device)
+            kern = lambda: ops.ffn(x, wg, wu, wd, act=cfg.act)
+            plain = lambda: ref.fused_ffn_ref(x, wg, wu, wd, act=cfg.act)
+            err_rel = close(kern(), plain(), BF16_TOL, f"ffn {name} T {tt}")
+            pl = fused_ffn.plan(tt, d, f, bf16, n_sm)
+            chain_ms = time_ms(lambda: unfused_chain(x, wg, wu, wd, cfg.act),
+                               10, 3)
+            factor = ffn_work_factor(tt, d, f, cfg.gated, n_sm)
+            resident = fused_ffn.max_active_clusters(tt, d, f, n_sm)
+            clusters = pl.slices * pl.grid[1] * pl.grid[2]
+            waves = -(-clusters // max(resident, 1))
+            say(f"[time] fused_ffn {name} {phase} T{tt}: {pl.slices} d_model "
+                f"slices, cluster {pl.cluster}, {pl.cols} columns per block, "
+                f"grid {pl.grid}, {pl.groups} d_ff groups, workspace "
+                f"{pl.ws_bytes} B; {resident} clusters resident, {waves} "
+                f"waves; {factor:.4f}x the FFN's operations; the unfused bf16 "
+                f"chain (a yardstick the port never calls) {chain_ms:.6f} ms")
+            rows.append(lm_row(
+                f"fused_ffn[{name} {phase} T{tt} d{d} d_ff{f} {cfg.act}"
+                f"{'' if cfg.gated else ' ungated'}]", FFN_SOURCE,
+                FFN_REPLACES, n_launch, err_rel, time_ms(kern, 10, 3),
+                time_ms(plain, 10, 3),
+                *ffn_bound(tt, d, f, gated=cfg.gated), None, NO_FFN_LIBRARY,
+                {"shape": [tt, d, f], "arch": name,
+                 "launches_per_prefill": run["layers"]
+                 if phase == "prefill" else 0,
+                 "launches_per_decode_step": run["layers"]
+                 if phase == "decode" else 0,
+                 "slices": pl.slices, "cluster": pl.cluster,
+                 "cols": pl.cols, "groups": pl.groups,
+                 "ws_bytes": pl.ws_bytes, "work_factor": factor,
+                 "resident_clusters": resident,
+                 "unfused_chain_ms": chain_ms}))
+            del x
+        del wg, wu, wd
+        torch.cuda.empty_cache()
+    return rows
+
+
+def dense_summary(runs):
+    """One line per dense arch: prefill ms, decode tok/s, busy, idle."""
+    card = card_line()
+    for name in DENSE_ARCHS:
+        run = runs[name]
+        for step, (host_ms, busy_ms) in run["times"].items():
+            rate = (f", {LM_BATCH / host_ms * 1e3:.3f} tok/s"
+                    if step == "decode step" else "")
+            busy = ("busy not measured" if busy_ms is None else
+                    f"busy {busy_ms:.6f} ms, idle share "
+                    f"{1 - busy_ms / host_ms:.2%}")
+            say(f"[dense-summary] {name} ({run['layers']} of "
+                f"{run['full_layers']} layers) {step} B{LM_BATCH}: "
+                f"{host_ms:.6f} ms host clock{rate}; {busy}; launches "
+                f"{run['counts']}; {card}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1702,6 +2107,14 @@ def main() -> int:
             e["launches_per_spot_check"] = dict(
                 spot_split, per_check=sum(spot_split.values()),
                 serving_runs=serve_launches)
+
+    t0 = time.perf_counter()
+    phase_dense_kernel_vs_plain(device)
+    runs = {name: phase_dense_serve(name, device) for name in DENSE_DECODERS}
+    runs[ENCODER] = phase_encoder_forward(device)
+    entries += phase_dense_kernel_times(device, runs)
+    dense_summary(runs)
+    say(f"[dense] phases 20-24: {time.perf_counter() - t0:.2f} s")
     say(card_line())
     say("kernels " + json.dumps(entries))
     say(json.dumps({"kernels": entries}))

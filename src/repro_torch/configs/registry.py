@@ -2,33 +2,49 @@
 
 Only ported architectures are listed. The reference's other archs raise on
 ``get``/``get_smoke`` and name the ROADMAP item that ports them.
+
+``cells()`` enumerates the (arch x input-shape) grid of the ported archs
+with per-cell applicability, as the reference's registry does:
+
+* encoder-only archs (hubert) have no decode step -> decode shapes N/A;
+* long_500k needs sub-quadratic attention -> N/A for full-attention archs.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
-from typing import Tuple
+from typing import List, Optional, Tuple
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, InputShape, LM_SHAPES
 
 _MODULES = {
     "gemma2-9b": "repro_torch.configs.gemma2_9b",
+    "qwen3-14b": "repro_torch.configs.qwen3_14b",
+    "glm4-9b": "repro_torch.configs.glm4_9b",
+    "qwen2-72b": "repro_torch.configs.qwen2_72b",
+    "internvl2-1b": "repro_torch.configs.internvl2_1b",
+    "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
 }
 
 ARCH_NAMES: Tuple[str, ...] = tuple(_MODULES)
 
 # The reference's archs that the port does not run yet.
 NOT_PORTED: Tuple[str, ...] = (
-    "recurrentgemma-9b", "internvl2-1b", "qwen2-72b", "qwen3-14b",
-    "glm4-9b", "llama4-scout-17b-a16e", "qwen2-moe-a2.7b", "hubert-xlarge",
+    "recurrentgemma-9b", "llama4-scout-17b-a16e", "qwen2-moe-a2.7b",
     "rwkv6-3b")
+
+# archs whose every layer is O(T) or windowed => long_500k runnable
+SUBQUADRATIC = ("recurrentgemma-9b", "rwkv6-3b")
+# encoder-only => no decode step
+ENCODER_ONLY = ("hubert-xlarge",)
 
 
 def _module(name: str):
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"arch {name!r} is not ported yet (ROADMAP.md Queue 1, item 5: "
-            "the LM path after gemma2-9b)")
+            "MoE, RG-LRU and RWKV6 after the dense configs)")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; ported: {ARCH_NAMES}")
     return importlib.import_module(_MODULES[name])
@@ -40,3 +56,34 @@ def get(name: str) -> ArchConfig:
 
 def get_smoke(name: str) -> ArchConfig:
     return _module(name).SMOKE
+
+
+@dataclasses.dataclass(frozen=True)
+class Cell:
+    arch: str
+    shape: InputShape
+    runnable: bool
+    skip_reason: Optional[str] = None
+
+    @property
+    def key(self) -> str:
+        return f"{self.arch}/{self.shape.name}"
+
+
+def cell_for(arch: str, shape: InputShape) -> Cell:
+    if shape.kind == "decode" and arch in ENCODER_ONLY:
+        return Cell(arch, shape, False,
+                    "encoder-only: no decode step exists")
+    if shape.name == "long_500k" and arch not in SUBQUADRATIC:
+        return Cell(arch, shape, False,
+                    "full quadratic attention at 512k seq: skipped per brief"
+                    " (needs sub-quadratic attention)")
+    return Cell(arch, shape, True)
+
+
+def cells() -> List[Cell]:
+    return [cell_for(a, s) for a in ARCH_NAMES for s in LM_SHAPES]
+
+
+def runnable_cells() -> List[Cell]:
+    return [c for c in cells() if c.runnable]

@@ -46,6 +46,22 @@
 // groups (14 at gemma2-9b T 4: 112 blocks); each group writes an f32
 // partial of (T, d_model), and reduce_kernel sums the groups in a fixed
 // order (0.8 MB at T 4, 0.26% of the 308 MB the launch reads).
+// Wider than one cluster covers (8 x 2 x 224 = 3584 columns), the plan cuts
+// d_model into S slices of at most 3584 columns, S = ceil(d_model / 3584): 2
+// at 4096 (glm4-9b) and 5120 (qwen3-14b), 3 at 8192 (qwen2-72b). The grid's
+// x is C x S: block x holds columns [x * 2 NW, (x + 1) * 2 NW), so slice
+// x / C's cluster walks the same d_ff chunks as the others and recomputes
+// their expansion. h still never leaves a cluster, and each output element
+// is still summed by one thread in d_ff order. What that pays: the expansion
+// (4/6 of the gated FFN's operations) runs S times, and the projection also
+// runs over the last slice's columns past d_model (4096: none, (C 8, NW 128);
+// 5120 and 8192: NW 224, 7168 and 10752 columns for 5120 and 8192), so 1.67x
+// the operations at 4096, 1.80x at 5120 and 2.44x at 8192; at decode the S
+// slices each read Wg and Wu (through L2 where they run together). The other
+// ways out were worse for a first version: a cluster of 16 is not portable,
+// its residency unknown, and it reaches 7168 columns at width 224; an f32
+// accumulator in shared memory takes 2 MB per 64-row tile at 8192. Every
+// plan at d_model <= 3584 is as before (S = 1, grid x = C).
 // Ragged T, d_ff and d_model are zero-filled by the tensor maps: a zero
 // weight column gives h = act(0) * 0 = 0 (gated) or act(0) = 0 (ungated,
 // every act here). Stores past T or d_model are masked.
@@ -154,6 +170,8 @@ constexpr uint32_t kWBox = kExpK * kAtom * 2;   // Wg / Wu box: 8 KB
 constexpr uint32_t kDBox = kProjK * kAtom * 2;  // Wd box: 2 KB
 constexpr uint32_t kHPiece = kBT * kPiece * 2;  // one block's h piece: 8 KB
 constexpr int kBarBytes = 8 * (2 * kMaxStages + 2);
+constexpr int kMaxCluster = 8;      // the portable cluster size
+constexpr int kMaxCover = kMaxCluster * 2 * 224;   // d_model one cluster covers
 
 constexpr int kF32BT = 16;          // f32: token rows per block
 constexpr int kF32Threads = 256;
@@ -180,15 +198,23 @@ int ceil_div(long long a, long long b) {
 
 // The bf16 cluster size and per-warpgroup width for d_model d: the smallest
 // cluster whose blocks' two warpgroups cover d with a width of 32, 64, 128
-// or 224 columns. 0: d is wider than 8 x 2 x 224 = 3584.
+// or 224 columns. 0: d is wider than one cluster covers (kMaxCover).
 int pick_width(int d, int* cluster) {
   static const int kWidths[4] = {32, 64, 128, 224};
-  for (int c = 1; c <= 8; c *= 2) {
+  for (int c = 1; c <= kMaxCluster; c *= 2) {
     const int need = ceil_div(d, 2 * c);
     for (int nw : kWidths)
       if (need <= nw) { *cluster = c; return nw; }
   }
   return 0;
+}
+
+// d_model slices: 1 where one cluster covers d, else the fewest slices of
+// at most kMaxCover columns; the cluster and width then cover one slice.
+int pick_slices(int d, int* cluster, int* nw) {
+  const int slices = d <= kMaxCover ? 1 : ceil_div(d, kMaxCover);
+  *nw = pick_width(ceil_div(d, slices), cluster);
+  return slices;
 }
 
 // dtype 1 (bf16) or 0 (f32). Returns 0, or cudaErrorInvalidValue.
@@ -197,8 +223,8 @@ int make_plan(int dtype, int t, int d, int f, int n_sm, LaunchPlan* pl) {
     return static_cast<int>(cudaErrorInvalidValue);
   const long long tiles_ll = (static_cast<long long>(t) + kBT - 1) / kBT;
   if (dtype == 1) {
-    int c = 0;
-    const int nw = pick_width(d, &c);
+    int c = 0, nw = 0;
+    const int slices = pick_slices(d, &c, &nw);
     if (nw == 0 || tiles_ll > 65535)
       return static_cast<int>(cudaErrorInvalidValue);
     const int tiles = static_cast<int>(tiles_ll);
@@ -207,7 +233,8 @@ int make_plan(int dtype, int t, int d, int f, int n_sm, LaunchPlan* pl) {
     pl->cols = 2 * nw;
     pl->chunk = c * kPiece;
     pl->chunks = ceil_div(f, pl->chunk);
-    const int want = n_sm / (tiles * c);   // groups that would fill the card
+    // groups that would fill the card
+    const int want = n_sm / (tiles * c * slices);
     pl->per_group = want <= 1 ? pl->chunks
                               : ceil_div(pl->chunks, std::min(want, pl->chunks));
     pl->groups = ceil_div(pl->chunks, pl->per_group);
@@ -216,7 +243,7 @@ int make_plan(int dtype, int t, int d, int f, int n_sm, LaunchPlan* pl) {
     long long stages = (kSmemLimit - 1024 - hbytes - kBarBytes) / slot;
     pl->stages = static_cast<int>(stages < kMaxStages ? stages : kMaxStages);
     pl->smem = 1024 + pl->stages * slot + hbytes + kBarBytes;
-    pl->grid_x = c;
+    pl->grid_x = static_cast<long long>(c) * slices;
     pl->grid_y = tiles;
     pl->grid_z = pl->groups;
     pl->ws_bytes = pl->groups > 1 ? 4LL * pl->groups * t * d : 0;
@@ -398,7 +425,7 @@ __device__ __forceinline__ void transpose_quad(uint32_t (&v)[4], int cq) {
 struct Bf16Params {
   void* y;         // (T, d_model) bf16, when groups == 1
   float* ws;       // (groups, T, d_model) f32 partials, when groups > 1
-  int t, d, act, gated;
+  int t, d, act, gated, cluster;
   int stages, per_group, chunks;
 };
 
@@ -417,7 +444,7 @@ __global__ void __launch_bounds__(kThreadsBf16, 1) ffn_wgmma_kernel(
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const int n_stages = p.stages;
-  const int cluster = static_cast<int>(gridDim.x);   // cluster = (C, 1, 1)
+  const int cluster = p.cluster;   // cluster (C, 1, 1); grid x: C x slices
   const uint32_t h_buf = base + n_stages * kSlot;    // one chunk of h
   const uint32_t bars = h_buf + cluster * kHPiece;
   auto full = [&](int s) { return bars + 8 * s; };
@@ -430,7 +457,8 @@ __global__ void __launch_bounds__(kThreadsBf16, 1) ffn_wgmma_kernel(
   const int t0 = blockIdx.y * kBT;
   const int c_begin = blockIdx.z * p.per_group;
   const int c_end = min(p.chunks, c_begin + p.per_group);
-  const int col0 = static_cast<int>(rank) * 2 * NW;   // this block's columns
+  // this block's columns: slice blockIdx.x / C, rank blockIdx.x % C
+  const int col0 = static_cast<int>(blockIdx.x) * 2 * NW;
   const int exp_stages = (p.d + kExpK - 1) / kExpK;
   const int proj_stages = cluster * kPiece / kProjK;
 
@@ -842,6 +870,7 @@ extern "C" int fused_ffn_launch(
     p.y = y;
     p.ws = pl.groups > 1 ? static_cast<float*>(ws) : nullptr;
     p.t = t; p.d = d; p.act = act; p.gated = wg != nullptr;
+    p.cluster = pl.cluster;
     p.stages = pl.stages; p.per_group = pl.per_group; p.chunks = pl.chunks;
     switch (pl.cols / 2) {
       case 32: return launch_bf16<32>(pl, p, x, wg, wu, wd, f, s);

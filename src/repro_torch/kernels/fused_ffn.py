@@ -9,7 +9,9 @@ The bf16 kernel is output-stationary over a thread-block cluster: the C
 blocks of a cluster split the (64-row, d_model) f32 accumulator by d_model
 columns, each computes its 64-column piece of every d_ff chunk of h with
 ``wgmma``, the pieces are all-gathered in distributed shared memory, and
-each block multiplies the whole chunk by its columns of Wd. At prefill it
+each block multiplies the whole chunk by its columns of Wd. A d_model wider
+than one cluster covers (``MAX_COVER``, 3584) is cut into slices, one
+cluster each, that recompute the expansion (``Plan.slices``). At prefill it
 writes nothing but y; at decode the plan splits d_ff into groups whose f32
 partials a second pass sums in a fixed order. The f32 kernel (tests and the
 f32 checks) is scalar and splits d_ff over blocks with f32 partials.
@@ -47,6 +49,7 @@ BLOCK_T = 64             # token rows per block (wgmma M)
 PIECE = 64               # d_ff columns of h per block per chunk
 WIDTHS = (32, 64, 128, 224)   # output columns per consumer warpgroup
 MAX_CLUSTER = 8          # the portable cluster size
+MAX_COVER = MAX_CLUSTER * 2 * WIDTHS[-1]   # d_model columns one cluster covers
 EXP_K = 128              # d_model columns per expansion ring stage
 PROJ_K = 32              # d_ff rows per projection ring stage
 MAX_STAGES = 6
@@ -83,6 +86,12 @@ class Plan:
                 self.smem_bytes, *self.grid, self.ws_bytes)
 
     @property
+    def slices(self) -> int:
+        """d_model slices (bf16): clusters side by side along grid x, each
+        recomputing the expansion of the same d_ff chunks."""
+        return self.grid[0] // self.cluster
+
+    @property
     def acc_registers(self) -> int:
         """f32 registers per consumer thread for the accumulators (bf16):
         the output slice (64 x cols / 2 per warpgroup) and [g | u]."""
@@ -90,16 +99,17 @@ class Plan:
 
     def tiles(self) -> Iterator[Tuple[int, int, int, Tuple[int, int],
                                       Tuple[int, int]]]:
-        """bf16: (rank, token tile, group, d_ff range, d_model range) of
-        each block; the ranges are half-open and may pass d_ff or d_model
-        (zero-filled loads, masked stores)."""
+        """bf16: (block x, token tile, group, d_ff range, d_model range) of
+        each block; x is slice x // cluster, cluster rank x % cluster. The
+        ranges are half-open and may pass d_ff or d_model (zero-filled
+        loads, masked stores)."""
         for group in range(self.groups):
             f0 = group * self.per_group * self.chunk
             f1 = min(self.chunks, (group + 1) * self.per_group) * self.chunk
             for tile in range(self.grid[1]):
-                for rank in range(self.cluster):
-                    yield (rank, tile, group, (f0, f1),
-                           (rank * self.cols, (rank + 1) * self.cols))
+                for x in range(self.grid[0]):
+                    yield (x, tile, group, (f0, f1),
+                           (x * self.cols, (x + 1) * self.cols))
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -107,7 +117,7 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def pick_width(d: int) -> Tuple[int, int]:
-    """(cluster, columns per warpgroup) for d_model ``d`` in bf16: the
+    """(cluster, columns per warpgroup) for ``d`` columns in bf16: the
     smallest cluster whose blocks cover d with one of ``WIDTHS``."""
     c = 1
     while c <= MAX_CLUSTER:
@@ -116,8 +126,15 @@ def pick_width(d: int) -> Tuple[int, int]:
             if need <= nw:
                 return c, nw
         c *= 2
-    raise ValueError(f"bf16 fused FFN covers d_model up to "
-                     f"{2 * MAX_CLUSTER * WIDTHS[-1]}, got {d}")
+    raise ValueError(f"one cluster covers up to {MAX_COVER} columns, got {d}")
+
+
+def pick_slices(d: int) -> Tuple[int, int, int]:
+    """(slices, cluster, columns per warpgroup) for d_model ``d`` in bf16:
+    one slice where a cluster covers d, else the fewest slices of at most
+    ``MAX_COVER`` columns, the cluster and width covering one slice."""
+    slices = 1 if d <= MAX_COVER else _cdiv(d, MAX_COVER)
+    return (slices, *pick_width(_cdiv(d, slices)))
 
 
 def plan(t: int, d: int, d_ff: int, dtype: torch.dtype, n_sm: int) -> Plan:
@@ -125,10 +142,11 @@ def plan(t: int, d: int, d_ff: int, dtype: torch.dtype, n_sm: int) -> Plan:
     ``n_sm`` SMs."""
     if dtype == torch.bfloat16:
         tiles = _cdiv(t, BLOCK_T)
-        c, nw = pick_width(d)
+        slices, c, nw = pick_slices(d)
         chunk = c * PIECE
         chunks = _cdiv(d_ff, chunk)
-        want = n_sm // (tiles * c)   # d_ff groups that would fill the card
+        # d_ff groups that would fill the card
+        want = n_sm // (tiles * c * slices)
         per = chunks if want <= 1 else _cdiv(chunks, min(want, chunks))
         groups = _cdiv(chunks, per)
         slot = max(EXP_K // 64 * X_BOX + 4 * W_BOX, PROJ_K * 2 * nw * 2)
@@ -139,7 +157,7 @@ def plan(t: int, d: int, d_ff: int, dtype: torch.dtype, n_sm: int) -> Plan:
                     stages=stages, groups=groups, per_group=per,
                     chunks=chunks,
                     smem_bytes=1024 + stages * slot + h_bytes + BAR_BYTES,
-                    grid=(c, tiles, groups),
+                    grid=(c * slices, tiles, groups),
                     ws_bytes=4 * groups * t * d if groups > 1 else 0)
     tiles = _cdiv(t, F32_BLOCK_T)
     chunks = _cdiv(d_ff, F32_COLS)
@@ -197,7 +215,7 @@ def fused_ffn_cuda(x: torch.Tensor, w_gate: Optional[torch.Tensor],
       x: (T, d_model). w_gate, w_up: (d_model, d_ff); w_gate None for an
         ungated FFN. w_down: (d_ff, d_model). All contiguous, one dtype,
         float32 or bfloat16, starting on 16-byte boundaries; d_model and
-        d_ff multiples of 16; bf16 d_model at most 3584.
+        d_ff multiples of 16.
       act: silu | gelu (tanh) | relu_sq | relu.
     Returns: (T, d_model) in x's dtype, on x's device and current stream.
     """
@@ -224,8 +242,6 @@ def fused_ffn_cuda(x: torch.Tensor, w_gate: Optional[torch.Tensor],
            if w is not None):
         raise ValueError("x and the weights must start on 16-byte boundaries "
                          "(TMA)")
-    if x.dtype == torch.bfloat16:
-        pick_width(d)   # raises past the widest cluster
     if dev.type != "cuda":
         raise ValueError(f"fused_ffn_cuda needs CUDA tensors, got {dev}")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count

@@ -68,17 +68,24 @@ def _relu(x):
 ACTS = {"silu": _silu, "gelu": _gelu, "relu_sq": _relu_sq, "relu": _relu}
 
 
+def _acc(x):
+    """``x`` in its accumulation type: float32, or float64 for a float64
+    input, so that a float64 call computes the whole function in float64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def fused_ffn_ref(x, w_gate, w_up, w_down, *, act: str = "silu"):
-    """y = act(x @ w_gate) * (x @ w_up) @ w_down, f32 accumulation; ``h`` is
-    cast to ``x.dtype`` before the down projection, as the kernel does.
-    ``w_gate`` may be None (ungated: y = act(x @ w_up) @ w_down)."""
+    """y = act(x @ w_gate) * (x @ w_up) @ w_down, f32 accumulation (f64 for
+    f64 inputs); ``h`` is cast to ``x.dtype`` before the down projection, as
+    the kernel does. ``w_gate`` may be None (ungated: y = act(x @ w_up) @
+    w_down)."""
     f = ACTS[act]
-    x32 = x.float()
+    xa = _acc(x)
     if w_gate is None:
-        h = f(x32 @ w_up.float())
+        h = f(xa @ _acc(w_up))
     else:
-        h = f(x32 @ w_gate.float()) * (x32 @ w_up.float())
-    return (h.to(x.dtype).float() @ w_down.float()).to(x.dtype)
+        h = f(xa @ _acc(w_gate)) * (xa @ _acc(w_up))
+    return (_acc(h.to(x.dtype)) @ _acc(w_down)).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -90,12 +97,12 @@ def attention_ref(q, k, v, *, causal: bool = True,
                   window: Optional[int] = None,
                   softcap: Optional[float] = None,
                   sm_scale: Optional[float] = None):
-    """(BH, Tq, d) x (BH, Tk, d) -> (BH, Tq, d). Rows with no valid key
-    give zeros."""
+    """(BH, Tq, d) x (BH, Tk, d) -> (BH, Tq, d), in f32 (f64 for f64
+    inputs). Rows with no valid key give zeros."""
     _, tq, d = q.shape
     tk = k.shape[1]
     scale = float(sm_scale if sm_scale is not None else d ** -0.5)
-    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    s = torch.einsum("bqd,bkd->bqk", _acc(q), _acc(k)) * scale
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
     q_pos = torch.arange(tq, device=q.device)[:, None]
@@ -108,7 +115,7 @@ def attention_ref(q, k, v, *, causal: bool = True,
     s = torch.where(mask, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     p = torch.where(mask.any(dim=-1, keepdim=True), p, torch.zeros_like(p))
-    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+    return torch.einsum("bqk,bkd->bqd", p, _acc(v)).to(q.dtype)
 
 
 def mha_ref(q, k, v, *, causal: bool = True, window: Optional[int] = None,

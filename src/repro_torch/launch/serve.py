@@ -6,11 +6,19 @@ the card through the hand-written kernels.
         --batch 4 --prompt-len 512 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-72b \
+        --layers 32 --batch 4 --prompt-len 512 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.serve --mobilenet --batch 256
 
 ``--arch`` runs the reference launcher's LM loop with seeded random
 weights: one prefill of ``--batch`` prompts of ``--prompt-len`` tokens, then
 ``--gen - 1`` decode steps, each token the argmax of the last logits.
+Every ported arch but the encoder-only hubert-xlarge, which exits as the
+reference launcher does. For the vision stub (internvl2-1b) the prompts
+follow ``n_patches`` patch embeddings drawn from ``--seed`` (scale 0.02),
+and the KV cache and decode positions count them. ``--layers`` cuts the
+depth (a model too large for one card at full depth, such as qwen2-72b's
+145 GB in bf16); the width stays the config's.
 ``--attn-impl`` and ``--block-impl`` set the config's attention and FFN
 disciplines; their defaults, ``kernel`` and ``fused``, run the flash-
 attention and fused-FFN kernels on a card (``--attn-impl fused
@@ -96,19 +104,30 @@ def serve_lm(args) -> np.ndarray:
     dev = resolve_device(args.device)
     cfg = (registry.get_smoke(args.arch) if args.smoke
            else registry.get(args.arch))
+    if args.arch in registry.ENCODER_ONLY:
+        raise SystemExit("encoder-only arch has no decode path")
     cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl,
                               block_impl=args.block_impl)
+    if args.layers is not None and args.layers != cfg.n_layers:
+        print(f"[serve] depth cut to {args.layers} of {cfg.n_layers} layers "
+              f"(--layers); width as the config's")
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     print(f"[serve] arch={cfg.name} params={cfg.param_count():,} "
           f"attn={cfg.attn_impl} ffn={cfg.block_impl} on {device_label(dev)}")
     params = lm.init_params(cfg, args.seed, dev)
-    max_len = args.prompt_len + args.gen
+    off = cfg.n_patches if cfg.frontend == "vision" else 0
+    max_len = off + args.prompt_len + args.gen
     rng = np.random.default_rng(args.seed)
     prompts = torch.from_numpy(
         rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))).to(dev)
+    patches = (torch.from_numpy(rng.standard_normal(
+        (args.batch, cfg.n_patches, cfg.d_model)).astype(np.float32)).to(dev)
+        * 0.02 if cfg.frontend == "vision" else None)
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = lm.prefill(params, cfg, prompts, max_len=max_len)
+    logits, cache = lm.prefill(params, cfg, prompts, patches=patches,
+                               max_len=max_len)
     tok = logits[:, :cfg.vocab].argmax(dim=-1)
     out_tokens = [tok]
     _sync(dev)
@@ -116,7 +135,7 @@ def serve_lm(args) -> np.ndarray:
     t0 = time.perf_counter()
     for i in range(args.gen - 1):
         logits, cache = lm.decode_step(params, cfg, cache, tok,
-                                       args.prompt_len + i)
+                                       off + args.prompt_len + i)
         tok = logits[:, :cfg.vocab].argmax(dim=-1)
         out_tokens.append(tok)
     _sync(dev)
@@ -125,7 +144,8 @@ def serve_lm(args) -> np.ndarray:
     steps = args.gen - 1
     rate = (f"{args.batch * steps / t_decode:.1f} tok/s"
             if steps and t_decode > 0 else "no decode steps")
-    print(f"[serve] prefill {args.batch}x{args.prompt_len} tok in "
+    prefix = f" after {off} patches" if off else ""
+    print(f"[serve] prefill {args.batch}x{args.prompt_len} tok{prefix} in "
           f"{t_prefill * 1e3:.3f} ms; {steps} decode steps of batch "
           f"{args.batch} in {t_decode * 1e3:.3f} ms ({rate})")
     print(f"[serve] sample continuation (seq 0): {gen[0][:12].tolist()}")
@@ -146,6 +166,9 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the arch's depth to this many layers (its "
+                         "width stays); default: the config's")
     ap.add_argument("--attn-impl", choices=("reference", "fused", "kernel"),
                     default="kernel")
     ap.add_argument("--block-impl", choices=("reference", "fused"),
@@ -160,6 +183,8 @@ def main(argv=None):
         ap.error("--arch or --mobilenet is required")
     if args.prompt_len < 1 or args.gen < 1:
         ap.error("--prompt-len and --gen must be >= 1")
+    if args.layers is not None and args.layers < 1:
+        ap.error("--layers must be >= 1")
     return serve_lm(args)
 
 

@@ -1,4 +1,5 @@
-"""Composable LM (port of ``repro.models.lm``), dense attention layers only.
+"""Composable LM (port of ``repro.models.lm``), dense attention layers only,
+with the reference's two modality stubs.
 
 A model is assembled from an ``ArchConfig``: the layer *pattern* (for
 gemma2, ``("attn_local", "attn")``) repeats over ``n_layers``. Whole pattern
@@ -18,10 +19,16 @@ Entry points:
 
     init_params(cfg, seed, device, dtype)      -> params
     params_from_numpy(tree, cfg, device, dtype) -> params
-    forward(params, cfg, tokens)               -> logits (B, T, V)
-    prefill(params, cfg, tokens, max_len)      -> (last logits, cache)
+    forward(params, cfg, tokens, patches, frames) -> logits (B, T, V)
+    prefill(params, cfg, tokens, patches, frames, max_len) -> (last logits,
+                                                               cache)
     decode_step(params, cfg, cache, token, pos) -> (logits, cache)
 
+Frontend stubs, as in the reference: ``frontend == "audio"`` (hubert) has
+no token embedding and takes precomputed ``frames`` (B, T, d_model);
+``frontend == "vision"`` (internvl2) prepends precomputed ``patches`` (B,
+n_patches, d_model) to the token embeddings, so a decode step after such a
+prefill is at ``pos`` = n_patches + prompt length + step.
 ``decode_step`` and ``prefill`` write the KV cache in place: the returned
 cache is the one passed in (decode) or just allocated (prefill).
 MoE, ``recurrent`` (RG-LRU) and ``rwkv`` layers are not ported yet.
@@ -43,8 +50,9 @@ from repro_torch.models import layers as L
 Params = Dict[str, Any]
 
 ATTN_KINDS = ("attn", "attn_local")
+FRONTENDS = (None, "audio", "vision")
 _NOT_PORTED = ("ROADMAP.md Queue 1, item 5: MoE, RG-LRU and RWKV6 layers "
-               "come after the dense gemma2 path")
+               "come after the dense configs")
 
 
 def _check_supported(cfg: ArchConfig) -> None:
@@ -55,10 +63,9 @@ def _check_supported(cfg: ArchConfig) -> None:
         if kind not in ATTN_KINDS:
             raise NotImplementedError(f"{cfg.name}: layer kind {kind!r} is "
                                       f"not ported yet ({_NOT_PORTED})")
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend} frontend "
-                                  "is not ported yet (ROADMAP.md Queue 1, "
-                                  "item 5)")
+    if cfg.frontend not in FRONTENDS:
+        raise ValueError(f"{cfg.name}: unknown frontend {cfg.frontend!r}; "
+                         f"one of {FRONTENDS}")
 
 
 # ---------------------------------------------------------------------------
@@ -197,7 +204,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda",
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     vp, d = cfg.vocab_padded(), cfg.d_model
-    p: Params = {"embed": _normal(gen, (vp, d), d ** -0.5, dev, dt)}
+    p: Params = {}
+    if cfg.frontend != "audio":   # audio: precomputed frames, no embedding
+        p["embed"] = _normal(gen, (vp, d), d ** -0.5, dev, dt)
     if cfg.n_units > 0:
         p["units"] = _stacked_units(gen, cfg, dev, dt)
     if cfg.tail_kinds:
@@ -253,12 +262,21 @@ def _layers(params: Params, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 
-def _embed(params, cfg: ArchConfig, tokens):
+def _device(params) -> torch.device:
+    return params["final_norm"].device
+
+
+def _embed(params, cfg: ArchConfig, tokens, patches=None, frames=None):
     dt = getattr(torch, cfg.dtype)
-    x = params["embed"][tokens].to(dt)
+    dev = _device(params)
+    if cfg.frontend == "audio":
+        return torch.as_tensor(frames, device=dev).to(dt)   # stub: frames
+    x = params["embed"][_tokens(tokens, dev)].to(dt)
     if cfg.embed_scale:
         # sqrt(d_model) rounded to the compute dtype, multiplied in it
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=x.device)
+    if cfg.frontend == "vision" and patches is not None:
+        x = torch.cat([torch.as_tensor(patches, device=dev).to(dt), x], dim=1)
     return x
 
 
@@ -276,9 +294,11 @@ def _tokens(tokens, device):
     return torch.as_tensor(tokens, dtype=torch.long, device=device)
 
 
-def forward(params, cfg: ArchConfig, tokens):
-    """Full-sequence forward: logits (B, T, Vp) in f32."""
-    x = _embed(params, cfg, _tokens(tokens, params["embed"].device))
+def forward(params, cfg: ArchConfig, tokens=None, patches=None,
+            frames=None):
+    """Full-sequence forward: logits (B, T, Vp) in f32 (T counts the vision
+    prefix)."""
+    x = _embed(params, cfg, tokens, patches, frames)
     for p, kind, _ in _layers(params, cfg):
         x = layer_apply(x, p, kind, cfg)
     return _head(params, cfg, x)
@@ -307,10 +327,11 @@ def _layer_cache(cache: Params, key) -> Params:
     return c if u is None else {"k": c["k"][u], "v": c["v"][u]}
 
 
-def prefill(params, cfg: ArchConfig, tokens, max_len: Optional[int] = None,
-            cache_dtype=torch.bfloat16):
-    """Process a prompt; return (last-token logits (B, Vp), cache)."""
-    x = _embed(params, cfg, _tokens(tokens, params["embed"].device))
+def prefill(params, cfg: ArchConfig, tokens=None, patches=None, frames=None,
+            max_len: Optional[int] = None, cache_dtype=torch.bfloat16):
+    """Process a prompt (after the vision prefix, if any); return
+    (last-token logits (B, Vp), cache). ``max_len`` counts the prefix."""
+    x = _embed(params, cfg, tokens, patches, frames)
     b, t = x.shape[0], x.shape[1]
     cache = init_cache(cfg, b, max_len or t, cache_dtype, x.device)
     for p, kind, key in _layers(params, cfg):
@@ -322,7 +343,9 @@ def decode_step(params, cfg: ArchConfig, cache, token, pos: int):
     """One decode step. token: (B,) ints; pos: the absolute position of
     this token. Returns (logits (B, Vp), cache), the cache updated in
     place."""
-    x = _embed(params, cfg, _tokens(token, params["embed"].device)[:, None])
+    if cfg.frontend == "audio":
+        raise ValueError(f"{cfg.name} is encoder-only: it has no decode step")
+    x = _embed(params, cfg, _tokens(token, _device(params))[:, None])
     for p, kind, key in _layers(params, cfg):
         x, _ = layer_decode(x, p, kind, cfg, _layer_cache(cache, key), int(pos))
     return _head(params, cfg, x)[:, 0], cache

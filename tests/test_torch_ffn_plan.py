@@ -5,7 +5,9 @@ bf16 a cluster of C blocks along d_model, each holding 64 token rows x
 ``cols`` output columns in registers, walking its d_ff group in chunks of
 C x 64 columns whose h pieces are all-gathered in distributed shared
 memory; the ring depth, the shared memory, the grid and the workspace (none
-at prefill, f32 partials of the d_ff groups at decode). The CUDA kernel
+at prefill, f32 partials of the d_ff groups at decode). A d_model wider than
+one cluster covers (3584) is cut into slices along the grid's x, one cluster
+each, that recompute the expansion. The CUDA kernel
 runs only on a card (``tests/test_torch_kernels.py``, ``-m gpu``, and
 ``chip_smoke.py``, which also holds the built launcher's plan to this one).
 Here the plan's coverage and sizes, the wrapper's refusals, and a plain
@@ -28,33 +30,40 @@ BF16_TOL = 2e-2              # tests/test_kernels.py's bf16 tolerance
 BF16_NORM_TOL = 1e-2         # relative norm of the whole output
 REG_LIMIT = 232              # a consumer thread's registers after setmaxnreg
 
+# The wider dense configs: (d_model, d_ff) of glm4-9b, qwen3-14b, qwen2-72b.
+WIDE = [(4096, 13696), (5120, 17408), (8192, 29568)]
 # (T, d_model, d_ff): the gemma2-9b serve path (decode T 1 and 4, prefill
-# T 2048, a ragged prefill T 1000), the card test's shapes, a ragged d_ff.
+# T 2048, a ragged prefill T 1000), the card test's shapes, a ragged d_ff;
+# the wide configs' decode and prefill, a ragged T, and small shapes just
+# past one cluster's cover (counted element by element).
 SHAPES = [(1, D_MODEL, D_FF), (4, D_MODEL, D_FF), (77, D_MODEL, D_FF),
           (1000, D_MODEL, D_FF), (2048, D_MODEL, D_FF),
           (64, 128, 512), (32, 64, 192), (128, 128, 384), (64, 96, 256),
           (1, 256, 1040), (77, D_MODEL, 1024), (48, 128, 256)]
+SHAPES += [(t, d, f) for d, f in WIDE for t in (4, 2048)]
+SHAPES += [(1000, 5120, 17408), (3, 3600, 128), (70, 8192, 48),
+           (5, 7184, 64)]
 
 
 def _ranges(pl):
     """The plan's distinct token-row, d_ff and d_model ranges, and its
-    blocks as (tile, group, rank)."""
+    blocks as (tile, group, block x)."""
     rows, ffs, cols, blocks = {}, {}, {}, []
-    for rank, tile, group, ff, dm in pl.tiles():
+    for x, tile, group, ff, dm in pl.tiles():
         rows[tile] = (tile * pl.block_t, (tile + 1) * pl.block_t)
-        ffs[group], cols[rank] = ff, dm
-        blocks.append((tile, group, rank))
+        ffs[group], cols[x] = ff, dm
+        blocks.append((tile, group, x))
     return rows, ffs, cols, blocks
 
 
-def _partition(ranges, n):
+def _partition(ranges, n, past_ok=()):
     """Half-open ranges, in key order, tile [0, >= n) with no gap or overlap
-    and none wholly past n."""
+    and none wholly past n but those keyed in ``past_ok``."""
     spans = [ranges[k] for k in sorted(ranges)]
     assert spans[0][0] == 0
     assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
     assert spans[-1][1] >= n
-    assert all(lo < n for lo, _ in spans)
+    assert all(lo < n for k, (lo, _) in ranges.items() if k not in past_ok)
 
 
 @pytest.mark.parametrize("t,d,f", SHAPES)
@@ -67,31 +76,41 @@ def test_plan_covers_every_row_ff_column_and_model_column_once(t, d, f):
     assert set(blocks) == {(a, b, c) for a in rows for b in ffs for c in cols}
     _partition(rows, t)
     _partition(ffs, f)
-    _partition(cols, d)
-    assert pl.grid == (pl.cluster, len(rows), pl.groups)
+    # a block wholly past d_model exists only where a sliced d_model leaves
+    # the last slice's cluster wider than its columns: the cluster still
+    # needs that block's h pieces
+    last = range((pl.slices - 1) * pl.cluster, pl.grid[0]) if (
+        pl.slices > 1) else ()
+    _partition(cols, d, last)
+    assert pl.grid == (pl.cluster * pl.slices, len(rows), pl.groups)
     # a group walks whole chunks; a chunk is one 64-column piece per block
     assert pl.chunk == 64 * pl.cluster
     assert all((hi - lo) % pl.chunk == 0 for lo, hi in ffs.values())
     if t * d * f <= 2 ** 25:   # and, counted element by element
         count = np.zeros((t, f, d), np.int8)
-        for rank, tile, group, (f0, f1), (n0, n1) in pl.tiles():
+        for _, tile, group, (f0, f1), (n0, n1) in pl.tiles():
             count[tile * 64:(tile + 1) * 64, f0:f1, n0:n1] += 1
         assert (count == 1).all()
 
 
 @pytest.mark.parametrize("d", [16, 48, 64, 96, 128, 208, 256, 448, 464,
-                               512, 896, 1024, 1792, 2048, 2304, 3072, 3584])
+                               512, 896, 1024, 1792, 2048, 2304, 3072, 3584,
+                               3600, 4096, 5120, 7168, 7184, 8192])
 def test_plan_fits_shared_memory_and_registers(d):
     pl = tff.plan(2048, d, 4 * d, torch.bfloat16, N_SM)
     assert pl.smem_bytes <= tff.SMEM_LIMIT
     assert pl.cluster in (1, 2, 4, 8) and pl.cols // 2 in tff.WIDTHS
-    # the smallest cluster, then the smallest width, that covers d_model
-    assert pl.cluster * pl.cols >= d
+    # one slice where a cluster covers d_model, else the fewest slices
+    assert pl.slices == (1 if d <= tff.MAX_COVER else -(-d // tff.MAX_COVER))
+    assert pl.grid[0] == pl.slices * pl.cluster
+    # the smallest cluster, then the smallest width, that covers a slice
+    per = -(-d // pl.slices)
+    assert pl.cluster * pl.cols >= per
     if pl.cluster > 1:
-        assert pl.cluster // 2 * 2 * tff.WIDTHS[-1] < d
+        assert pl.cluster // 2 * 2 * tff.WIDTHS[-1] < per
     narrower = [w for w in tff.WIDTHS if w < pl.cols // 2]
     if narrower:
-        assert pl.cluster * 2 * narrower[-1] < d
+        assert pl.cluster * 2 * narrower[-1] < per
     # the ring (at least double-buffered) and the h chunk buffer
     slot = max(2 * tff.X_BOX + 4 * tff.W_BOX, tff.PROJ_K * pl.cols * 2)
     assert pl.stages >= 2
@@ -100,9 +119,28 @@ def test_plan_fits_shared_memory_and_registers(d):
     assert pl.acc_registers + 64 <= REG_LIMIT
 
 
-def test_plan_refuses_a_model_wider_than_the_widest_cluster():
-    with pytest.raises(ValueError, match="d_model up to 3584"):
-        tff.plan(64, 3600, 1024, torch.bfloat16, N_SM)
+@pytest.mark.parametrize("d,f", WIDE)
+def test_plan_refuses_a_model_wider_than_the_widest_cluster(d, f):
+    """One cluster refuses a d_model past 3584 columns; the plan cuts it
+    into slices of one cluster each, which cover every token row, d_ff
+    column and d_model column exactly once, at decode and at prefill."""
+    with pytest.raises(ValueError, match="up to 3584 columns"):
+        tff.pick_width(d)
+    for t in (4, 2048):
+        pl = tff.plan(t, d, f, torch.bfloat16, N_SM)
+        assert pl.slices == -(-d // 3584) > 1
+        blocks = {}
+        for x, tile, group, ff, dm in pl.tiles():
+            assert (tile, group, x) not in blocks
+            blocks[tile, group, x] = ff + dm
+        tiles = sorted({tile for tile, _, _ in blocks})
+        assert tiles == list(range(-(-t // 64)))
+        for tile in tiles:   # d_ff x d_model, in 16 x 16 cells, once each
+            cells = np.zeros((-(-f // 16), d // 16), np.int8)
+            for (tl, _, _), (f0, f1, n0, n1) in blocks.items():
+                if tl == tile:
+                    cells[f0 // 16:f1 // 16, n0 // 16:n1 // 16] += 1
+            assert (cells == 1).all()
 
 
 @pytest.mark.parametrize("t", [2048, 1000])
@@ -137,6 +175,25 @@ def test_gemma2_path_plans_are_pinned():
         ws_bytes=802_816)
 
 
+@pytest.mark.parametrize("d,f,cols,chunks,slices,decode_groups", [
+    (4096, 13696, 256, 27, 2, 7), (5120, 17408, 448, 34, 2, 7),
+    (8192, 29568, 448, 58, 3, 5)])
+def test_wide_plans_are_pinned(d, f, cols, chunks, slices, decode_groups):
+    """glm4-9b, qwen3-14b and qwen2-72b: clusters of 8 side by side, the
+    gemma2 ring and shared memory; one group at prefill, and at decode the
+    groups that fill the card with the slices' clusters."""
+    pre = tff.plan(2048, d, f, torch.bfloat16, N_SM)
+    assert pre == tff.Plan(
+        block_t=64, cluster=8, cols=cols, chunk=512, stages=3, groups=1,
+        per_group=chunks, chunks=chunks, smem_bytes=214_128,
+        grid=(8 * slices, 32, 1), ws_bytes=0)
+    dec = tff.plan(4, d, f, torch.bfloat16, N_SM)
+    assert (dec.slices, dec.groups, dec.grid) == (
+        slices, decode_groups, (8 * slices, 1, decode_groups))
+    assert dec.ws_bytes == 4 * decode_groups * 4 * d
+    assert dec.groups * dec.grid[0] <= N_SM
+
+
 def _refusal(case):
     bf = torch.bfloat16
     x, wg, wu = (torch.zeros(s, dtype=bf) for s in ((4, 64), (64, 128),
@@ -166,16 +223,21 @@ def _refusal(case):
         args[0] = torch.zeros(4 * 64 + 1, dtype=bf)[1:].view(4, 64)
         msg = "16-byte boundaries"
     elif case == "d_model > 3584":
+        # a wide d_model is taken (sliced): only the CPU tensors are refused
         args = [torch.zeros(s, dtype=bf) for s in ((4, 3600), (3600, 64),
                                                    (3600, 64), (64, 3600))]
-        msg = "d_model up to 3584"
+        msg = "CUDA tensors"
+    elif case == "d_ff % 16":
+        args = [torch.zeros(s, dtype=bf) for s in ((4, 64), (64, 72),
+                                                   (64, 72), (72, 64))]
+        msg = "multiples of 16"
     return args, err, msg
 
 
 @pytest.mark.parametrize("case", ["cpu", "x 3-d", "d % 16", "float16",
                                   "mixed dtypes", "w_down shape",
                                   "non-contiguous", "misaligned",
-                                  "d_model > 3584"])
+                                  "d_model > 3584", "d_ff % 16"])
 def test_wrapper_refuses_what_the_kernel_does_not_take(case):
     args, err, msg = _refusal(case)
     before = tff.LAUNCHES
@@ -188,14 +250,15 @@ def _emulate(x, wg, wu, wd, act, pl):
     """The bf16 plan's tile walk in plain torch: for each token tile and
     d_ff chunk, every block's 64-column h piece (f32 products, act(g) * u
     in f32, cast to bf16), the all-gather of the pieces into the chunk,
-    each block's projection of the chunk onto its column slice into an f32
-    accumulator, chunk after chunk; then the groups' partials summed in
-    group order and cast to bf16."""
+    each block's projection of the chunk onto its columns into an f32
+    accumulator, chunk after chunk (every d_model slice's cluster computes
+    the same pieces); then the groups' partials summed in group order and
+    cast to bf16."""
     t, d = x.shape
     f = wu.shape[1]
     fn = ref.ACTS[act]
     f_pad = pl.chunks * pl.chunk
-    d_pad = pl.cluster * pl.cols
+    d_pad = pl.grid[0] * pl.cols
     xf = torch.zeros(pl.grid[1] * 64, d)
     xf[:t] = x.float()
 
@@ -212,7 +275,7 @@ def _emulate(x, wg, wu, wd, act, pl):
         c1 = min(pl.chunks, c0 + pl.per_group)
         for tile in range(pl.grid[1]):
             rows = slice(tile * 64, (tile + 1) * 64)
-            acc = [torch.zeros(64, pl.cols) for _ in range(pl.cluster)]
+            acc = [torch.zeros(64, pl.cols) for _ in range(pl.grid[0])]
             for c in range(c0, c1):
                 pieces = []
                 for rank in range(pl.cluster):
@@ -222,9 +285,9 @@ def _emulate(x, wg, wu, wd, act, pl):
                     h = fn(u) if wgf is None else fn(xf[rows] @ wgf[:, cols]) * u
                     pieces.append(h.to(torch.bfloat16))
                 chunk = torch.cat(pieces, 1).float()   # the all-gather
-                for rank in range(pl.cluster):
-                    n = slice(rank * pl.cols, (rank + 1) * pl.cols)
-                    acc[rank] += chunk @ wdf[c * pl.chunk:(c + 1) * pl.chunk, n]
+                for bx in range(pl.grid[0]):
+                    n = slice(bx * pl.cols, (bx + 1) * pl.cols)
+                    acc[bx] += chunk @ wdf[c * pl.chunk:(c + 1) * pl.chunk, n]
             out = torch.cat(acc, 1)[:, :d]
             n_rows = min(64, t - tile * 64)
             partial[group, tile * 64:tile * 64 + n_rows] = out[:n_rows]
@@ -238,7 +301,9 @@ def _emulate(x, wg, wu, wd, act, pl):
     (64, 128, 512, "silu", True), (32, 64, 192, "gelu", True),
     (128, 128, 384, "relu_sq", True), (64, 96, 256, "gelu", False),
     (1, 256, 1040, "relu", True), (48, 128, 256, "relu", True),
-    (77, D_MODEL, 1024, "gelu", True), (4, D_MODEL, 1024, "gelu", True)])
+    (77, D_MODEL, 1024, "gelu", True), (4, D_MODEL, 1024, "gelu", True),
+    (4, 4096, 512, "silu", True), (70, 3600, 256, "silu", True),
+    (3, 5120, 512, "silu", True), (2, 8192, 256, "gelu", False)])
 def test_tile_walk_emulation_matches_plain_version_and_jax(t, d, f, act,
                                                            gated):
     rng = np.random.default_rng(t + d + f)

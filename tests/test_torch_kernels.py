@@ -261,6 +261,50 @@ def test_fused_ffn_cuda_matches_plain():
 
 
 @pytest.mark.gpu
+def test_wide_ffn_and_new_flash_shapes_cuda_match_plain():
+    """The dense configs past gemma2: the bf16 FFN at d_model 4096, 5120
+    and 8192 (d_model cut into slices of one cluster each) at decode, at
+    prefill and at a ragged T and d_model, one f32 case; flash attention at
+    hubert's shape (d 80, no causal mask), internvl2's (d 64, 16:2 GQA, T
+    768) and glm4's (d 128, 32:2 GQA)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the fused-FFN and flash-attention "
+                    "kernels have no CPU mode")
+    from repro_torch.kernels import flash_attention, fused_ffn
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    ffn_cases = [(4, 4096, 13696, torch.bfloat16),
+                 (2048, 5120, 17408, torch.bfloat16),
+                 (4, 8192, 29568, torch.bfloat16),
+                 (333, 8192, 29568, torch.bfloat16),
+                 (70, 3600, 512, torch.bfloat16),
+                 (7, 4096, 1024, torch.float32)]
+    for t, d, f, dtype in ffn_cases:
+        x = torch.randn((t, d), generator=gen, device="cuda").to(dtype)
+        wg, wu, wd = ((torch.randn(s, generator=gen, device="cuda")
+                       * s[0] ** -0.5).to(dtype)
+                      for s in ((d, f), (d, f), (f, d)))
+        before = fused_ffn.LAUNCHES
+        got = ops.ffn(x, wg, wu, wd, act="silu")
+        torch.cuda.synchronize()
+        assert fused_ffn.LAUNCHES == before + 1
+        tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+        _close(got, ref.fused_ffn_ref(x, wg, wu, wd, act="silu"), tol)
+        del x, wg, wu, wd
+    flash_cases = [  # (b, t, h, hkv, d, causal)
+        (2, 512, 16, 16, 80, False), (2, 768, 16, 2, 64, True),
+        (1, 512, 32, 2, 128, True)]
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for b, t, h, hkv, d, causal in flash_cases:
+            q, k, v = (torch.randn((b, t, n, d), generator=gen, device="cuda")
+                       .to(dtype) for n in (h, hkv, hkv))
+            before = flash_attention.LAUNCHES
+            got = ops.mha(q, k, v, n_kv_heads=hkv, causal=causal)
+            torch.cuda.synchronize()
+            assert flash_attention.LAUNCHES == before + 1
+            _close(got, ref.mha_ref(q, k, v, causal=causal), tol)
+
+
+@pytest.mark.gpu
 def test_cfu_fast_path_cuda_matches_cpu():
     """The CFU fast path on the card (fused and row-tile stages through the
     DSC kernel, 7 launches per call) equals the CPU fast path (the kernel's

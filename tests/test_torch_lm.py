@@ -1,5 +1,7 @@
 """The port's LM (gemma2, dense attention) against the JAX package on the
-CPU: configs, attention prefill/decode with the ring-buffer KV cache, and
+CPU: configs (every ported arch's; the other dense archs' models are held in
+tests/test_torch_lm_archs.py), attention prefill/decode with the ring-buffer
+KV cache, and
 the smoke model's prefill plus greedy decode carried across through
 ``params_from_numpy``.
 
@@ -58,19 +60,27 @@ def _np(x):
 # --- configs -----------------------------------------------------------------
 
 
-def test_gemma2_config_matches_reference():
-    want = dataclasses.asdict(jreg.get("gemma2-9b"))
-    got = dataclasses.asdict(treg.get("gemma2-9b"))
+PORTED = ("gemma2-9b", "qwen3-14b", "glm4-9b", "qwen2-72b", "internvl2-1b",
+          "hubert-xlarge")
+
+
+@pytest.mark.parametrize("name", PORTED)
+def test_gemma2_config_matches_reference(name):
+    want = dataclasses.asdict(jreg.get(name))
+    got = dataclasses.asdict(treg.get(name))
     assert got == want
-    smoke_want = dataclasses.asdict(jreg.get_smoke("gemma2-9b"))
-    assert dataclasses.asdict(treg.get_smoke("gemma2-9b")) == smoke_want
-    cfg = treg.get("gemma2-9b")
-    assert cfg.param_count() == jreg.get("gemma2-9b").param_count()
-    assert cfg.vocab_padded() == 256000 and cfg.n_units == 21
-    assert treg.ARCH_NAMES == ("gemma2-9b",)
+    smoke_want = dataclasses.asdict(jreg.get_smoke(name))
+    assert dataclasses.asdict(treg.get_smoke(name)) == smoke_want
+    cfg = treg.get(name)
+    assert cfg.param_count() == jreg.get(name).param_count()
+    assert cfg.vocab_padded() == jreg.get(name).vocab_padded()
+    if name == "gemma2-9b":
+        assert cfg.vocab_padded() == 256000 and cfg.n_units == 21
+    assert treg.ARCH_NAMES == PORTED
 
 
-@pytest.mark.parametrize("name", ["qwen3-14b", "rwkv6-3b", "llama4-scout-17b-a16e"])
+@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "rwkv6-3b",
+                                  "llama4-scout-17b-a16e"])
 def test_unported_archs_raise_naming_roadmap(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         treg.get(name)

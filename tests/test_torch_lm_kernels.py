@@ -115,6 +115,51 @@ def test_mha_cpu_matches_jax_gqa(b, t, h, hkv, d, window, softcap):
         ops.mha(q, k, v, n_kv_heads=hkv * 2, **kw)
 
 
+def _np_attention_f64(q, k, v, *, causal, window, softcap):
+    """The plain attention in numpy float64, on (BH, T, d) arrays."""
+    s = np.einsum("bqd,bkd->bqk", q, k) * q.shape[-1] ** -0.5
+    if softcap is not None:
+        s = softcap * np.tanh(s / softcap)
+    qp, kp = np.arange(q.shape[1])[:, None], np.arange(k.shape[1])[None, :]
+    mask = np.ones_like(s[0], dtype=bool)
+    if causal:
+        mask &= qp >= kp
+    if window is not None:
+        mask &= (qp - kp) < window
+    s = np.where(mask, s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    return np.einsum("bqk,bkd->bqd", p / p.sum(-1, keepdims=True), v)
+
+
+@pytest.mark.parametrize("case", [FLASH_CASES[1], FLASH_CASES[5]])
+def test_attention_ref_computes_float64_inputs_in_float64(case):
+    # chip_smoke.py holds the f32 kernel to this float64 plain version; a
+    # silent cast to float32 inside would make it the host's float32 again.
+    tq, tk, d, causal, window, softcap = case
+    rng = np.random.default_rng(11)
+    q, k, v = (rng.standard_normal((2, t, d)) for t in (tq, tk, tk))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = ref.attention_ref(*(torch.from_numpy(a) for a in (q, k, v)), **kw)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), _np_attention_f64(q, k, v, **kw),
+                               atol=1e-12, rtol=1e-12)
+
+
+@pytest.mark.parametrize("gated", [True, False])
+def test_fused_ffn_ref_computes_float64_inputs_in_float64(gated):
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((16, 64))
+    wg, wu, wd = (0.05 * rng.standard_normal(s)
+                  for s in ((64, 192), (64, 192), (192, 64)))
+    silu = lambda z: z / (1.0 + np.exp(-z))  # noqa: E731
+    h = silu(x @ wg) * (x @ wu) if gated else silu(x @ wu)
+    got = ref.fused_ffn_ref(torch.from_numpy(x),
+                            torch.from_numpy(wg) if gated else None,
+                            torch.from_numpy(wu), torch.from_numpy(wd))
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), h @ wd, atol=1e-12, rtol=1e-12)
+
+
 def test_fully_masked_rows_give_zeros_in_the_port():
     # The Pallas kernel returns mean(V) for a row with no valid key; its
     # oracle returns zeros, and the port follows the oracle.
