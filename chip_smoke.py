@@ -9,9 +9,11 @@ kernel, the same network compiled for the CFU and run by the CFU fast path
 (whose fused and row-tile stages launch the same kernel), gemma2-9b
 serving (prefill + greedy decode) through the hand-written flash-attention
 and fused-FFN kernels, the CFU serving simulator, whose spot checks run
-the fast path and the network on the card, and the rest of the dense LM
+the fast path and the network on the card, the rest of the dense LM
 family (qwen3-14b, glm4-9b, qwen2-72b at reduced depth and internvl2-1b
-served, hubert-xlarge's forward) through the same two kernels. Phases:
+served, hubert-xlarge's forward) and the MoE, RG-LRU and RWKV6 families
+(qwen2-moe-a2.7b, llama4-scout-17b-a16e at reduced depth, recurrentgemma-9b,
+rwkv6-3b served) through the same two kernels. Phases:
 
 1. the card's name and power limit (nvidia-smi); no CUDA device -> fail;
 2. build every kernel from src/repro_torch/kernels/csrc (one nvcc each, all
@@ -138,7 +140,26 @@ served, hubert-xlarge's forward) through the same two kernels. Phases:
    plain version, the bound, ``torch.compile(flex_attention)`` (flash) or the
    unfused bf16 chain (FFN), with the FFN plan's slices, resident clusters and
    the operations it does over the ones needed;
-24. one summary line per dense arch: prefill ms, decode tok/s, busy, idle.
+24. one summary line per dense arch: prefill ms, decode tok/s, busy, idle;
+25. the MoE, RG-LRU and RWKV6 families, one at a time, each at full width,
+   as phase 21: ``launch.serve.main(["--arch", name, "--batch", "4",
+   "--prompt-len", "512", "--gen", "16"])`` for qwen2-moe-a2.7b,
+   recurrentgemma-9b and rwkv6-3b at full depth and llama4-scout-17b-a16e at
+   12 of its 48 layers (``--layers 12``: 216.5 GB of bf16 weights at 48),
+   every flash and FFN call held to its plain version; launches from the
+   config's layer pattern: one flash per attention layer per prefill, one
+   FFN per layer per prefill and per decode step (the MoE shared expert,
+   recurrentgemma's GeGLU, RWKV6's ungated relu_sq channel mix); for each
+   MoE arch one line with the capacity, the assignments dropped at prefill
+   and the first layer's expert-load histogram; then prefill and
+   decode-step ms, busy and idle share, and a repeated prefill's greedy
+   tokens equal to the served first ones;
+26. each family's flash and FFN shapes timed as in phase 23 (flash with
+   MQA 16:1 at d 256 under recurrentgemma's 2048 window, at 48/8 with zero
+   pad heads for llama4; the FFN as a shared expert at d_model 2048 and
+   5120, GeGLU at 4096, ungated relu_sq at 2560), beside the plain version,
+   the bound, flex or the unfused bf16 chain;
+27. one summary line per family arch, as phase 24.
 
 The last stdout line is {"ok": true, "device": {...}}; the line before it is
 the {"kernels": [...]} record, whose DSC rows also carry the kernel's
@@ -182,6 +203,7 @@ from repro_torch.launch import cfu as cfu_cli  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import mobilenetv2 as mnv2  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 
 # H100 SXM published dense peaks (NVIDIA data sheet), at a 700 W limit.
 PEAK_INT8_OPS = 1979e12
@@ -328,7 +350,7 @@ def phase_build():
     cfg = registry.get("gemma2-9b")
     shapes = [(t, cfg.d_model, cfg.d_ff) for t in (1, 4, 77, 1000, 2048)]
     shapes += [(t, d, f) for t, d, f, *_ in FFN_CASES]
-    shapes += dense_ffn_shapes()
+    shapes += served_ffn_shapes()
     for dtype in (torch.bfloat16, torch.float32):
         for t, d, f in shapes:
             pl = fused_ffn.plan(t, d, f, dtype, n_sm)
@@ -344,13 +366,13 @@ def phase_build():
             f"{pl.smem_bytes} B, workspace {pl.ws_bytes} B; == the launcher's; "
             f"{resident} clusters resident at once, so "
             f"{-(-pl.grid[1] * pl.grid[2] // resident)} waves")
-    for name in WIDE_ARCHS:
+    for name in WIDE_ARCHS + FAMILY_ARCHS:
         wide = registry.get(name)
+        d_ff = ffn_dims(wide)[0]
         for t in (LM_BATCH * LM_PROMPT, LM_BATCH):
-            pl = fused_ffn.plan(t, wide.d_model, wide.d_ff, torch.bfloat16,
-                                n_sm)
-            resident = fused_ffn.max_active_clusters(t, wide.d_model,
-                                                     wide.d_ff, n_sm)
+            pl = fused_ffn.plan(t, wide.d_model, d_ff, torch.bfloat16, n_sm)
+            resident = fused_ffn.max_active_clusters(t, wide.d_model, d_ff,
+                                                     n_sm)
             say(f"[build] fused_ffn plan {name} T {t}: {pl.slices} d_model "
                 f"slices of a cluster of {pl.cluster}, {pl.cols} columns per "
                 f"block, grid {pl.grid}, {pl.groups} d_ff groups, shared "
@@ -1509,6 +1531,10 @@ def flex_attention_library(q, k, v, want, *, window, softcap, causal=True):
         from torch.nn.attention.flex_attention import (create_block_mask,
                                                        flex_attention)
         inductor_config.compile_threads = 1   # no compile worker processes
+        # each shape recompiles; past dynamo's recompile limit (8 by
+        # default, and the script times more flash shapes than that) it
+        # would run flex unfused
+        torch._dynamo.reset()
         mask = (create_block_mask(mask_mod, None, None, p, p, device=q.device)
                 if causal else None)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -1616,7 +1642,8 @@ def phase_lm_kernel_times(device, launches):
 
 
 CHAIN_ACTS = {"gelu": lambda g: torch.nn.functional.gelu(g, approximate="tanh"),
-              "silu": torch.nn.functional.silu}
+              "silu": torch.nn.functional.silu,
+              "relu_sq": lambda g: torch.square(torch.relu(g))}
 
 
 def unfused_chain(x, wg, wu, wd, act="gelu"):
@@ -1718,10 +1745,20 @@ def phase_lm_profile(params, device, reps=3):
 DENSE_DECODERS = ("qwen3-14b", "glm4-9b", "qwen2-72b", "internvl2-1b")
 ENCODER = "hubert-xlarge"
 DENSE_ARCHS = DENSE_DECODERS + (ENCODER,)
+FAMILY_ARCHS = ("qwen2-moe-a2.7b", "llama4-scout-17b-a16e",
+                "recurrentgemma-9b", "rwkv6-3b")
 # qwen2-72b holds 145 GB of bf16 weights at its 80 layers: one 80 GB card
 # takes 32 layers (61 GB with the embedding and the head), at full width.
+# llama4-scout: 216.5 GB at 48 layers; one layer is 4.42 GB (16 experts x 3
+# x 5120 x 8192, the shared expert and attention), the embedding and head
+# 4.14 GB, so 12 layers are 57 GB.
 DEPTH_CUT = {"qwen2-72b": (32, "80 layers are 145 GB of bf16 weights, more "
-                               "than one 80 GB card; 32 layers are 61 GB")}
+                               "than one 80 GB card; 32 layers are 61 GB"),
+             "llama4-scout-17b-a16e": (
+                 12, "48 layers are 216.5 GB of bf16 weights; one layer is "
+                     "4.42 GB (16 experts x 3 x 5120 x 8192, the shared "
+                     "expert and attention), the embedding and head 4.14 "
+                     "GB, so 12 layers are 57 GB")}
 # The new flash shapes, held to the plain version in f32 and bf16:
 # (name, b, t, h, hkv, d, causal)
 DENSE_FLASH_CHECKS = [("hubert d80 non-causal", 4, 512, 16, 16, 80, False),
@@ -1742,18 +1779,67 @@ def prefix_len(cfg) -> int:
     return cfg.n_patches if cfg.frontend == "vision" else 0
 
 
-def dense_ffn_shapes():
-    """(T, d_model, d_ff) of every FFN launch the dense phases make."""
+def ffn_dims(cfg):
+    """(d_ff, gated, act) of the arch's fused-FFN calls: the MoE shared
+    expert's, RWKV6's channel mix (ungated relu_sq), else the FFN's."""
+    if cfg.moe is not None:
+        return cfg.moe.shared_d_ff, cfg.gated, cfg.act
+    if "rwkv" in cfg.pattern:
+        return cfg.d_ff, False, "relu_sq"
+    return cfg.d_ff, cfg.gated, cfg.act
+
+
+def launches_per_pass(cfg):
+    """(flash, FFN) launches of one prefill, from the layer pattern: one
+    flash per attention layer, one FFN per layer with an FFN-shaped second
+    half (a decode step launches the same FFN count and no flash)."""
+    kinds = cfg.layer_kinds()
+    flash = sum(k in lm.ATTN_KINDS for k in kinds)
+    has_ffn = cfg.moe is None or cfg.moe.shared_d_ff > 0
+    ffn = sum(k == "rwkv" or has_ffn for k in kinds)
+    return flash, ffn
+
+
+def served_ffn_shapes():
+    """(T, d_model, d_ff) of every FFN launch the dense and family phases
+    make."""
     shapes = []
-    for name in DENSE_ARCHS:
+    for name in DENSE_ARCHS + FAMILY_ARCHS:
         cfg = registry.get(name)
+        d_ff = ffn_dims(cfg)[0]
         shapes.append((LM_BATCH * (prefix_len(cfg) + LM_PROMPT), cfg.d_model,
-                       cfg.d_ff))
+                       d_ff))
         if name != ENCODER:
-            shapes.append((LM_BATCH, cfg.d_model, cfg.d_ff))
+            shapes.append((LM_BATCH, cfg.d_model, d_ff))
         if name in WIDE_ARCHS:
-            shapes.append((1000, cfg.d_model, cfg.d_ff))
+            shapes.append((1000, cfg.d_model, d_ff))
     return shapes
+
+
+def describe(cfg) -> str:
+    """The arch's layers and widths, for a phase's first line."""
+    kinds = cfg.layer_kinds()
+    parts = [f"d_model {cfg.d_model}"]
+    if any(k in lm.ATTN_KINDS for k in kinds):
+        parts.append(f"{cfg.n_heads_padded} query ({cfg.n_heads} + "
+                     f"{cfg.head_pad} pad) / {cfg.n_kv_heads} KV heads of "
+                     f"{cfg.head_dim_}" + (f", window {cfg.window}"
+                                           if "attn_local" in kinds else ""))
+    if "recurrent" in kinds:
+        parts.append(f"pattern {cfg.pattern} x {cfg.n_units} + tail "
+                     f"{cfg.tail_kinds}, RG-LRU width {cfg.lru_width_}, "
+                     f"conv {cfg.conv_width}")
+    if "rwkv" in kinds:
+        parts.append(f"{cfg.n_rwkv_heads} WKV heads of {cfg.rwkv_head_dim}")
+    if cfg.moe is not None:
+        m = cfg.moe
+        parts.append(f"{m.n_experts} experts top-{m.top_k} of d_ff "
+                     f"{m.d_ff_expert}, shared expert d_ff {m.shared_d_ff}, "
+                     f"capacity factor {m.capacity_factor}")
+    d_ff, gated, act = ffn_dims(cfg)
+    parts.append(f"fused FFN d_ff {d_ff} {act}"
+                 + ("" if gated else " ungated"))
+    return ", ".join(parts)
 
 
 def ffn_work_factor(t, d, f, gated, n_sm):
@@ -1832,11 +1918,36 @@ def time_path(tag, fns, reps):
     return out
 
 
-def phase_dense_serve(name, device):
-    """One dense decoder through the user's entry point: ``launch.serve
-    --arch name`` (``--layers`` where the card cannot hold the full depth)
-    at B 4, P 512, 16 generated tokens, every flash and FFN call held to
-    its plain version; the launches per prefill and per decode step; then
+class MoELoad:
+    """Within the block, every ``moe.moe_layer`` call on more than one
+    token per sequence (the prefill) also records ``moe.expert_load`` on
+    its input: the capacity, the assignments dropped past it and each
+    expert's load. It recomputes the routing and launches no kernel."""
+
+    def __init__(self):
+        self.calls, self.saved = [], None
+
+    def __enter__(self):
+        self.saved = moe.moe_layer
+
+        def recorded(x, p, cfg):
+            if x.shape[1] > 1:
+                self.calls.append(moe.expert_load(x, p, cfg))
+            return self.saved(x, p, cfg)
+
+        moe.moe_layer = recorded
+        return self
+
+    def __exit__(self, *exc):
+        moe.moe_layer = self.saved
+
+
+def phase_arch_serve(name, device, tag="dense"):
+    """One decoder through the user's entry point: ``launch.serve --arch
+    name`` (``--layers`` where the card cannot hold the full depth) at B 4,
+    P 512, 16 generated tokens, every flash and FFN call held to its plain
+    version; the launches per prefill and per decode step, from the layer
+    pattern (``launches_per_pass``); for MoE, the dispatch at prefill; then
     the served weights timed: a prefill and a decode step on the host
     clock, and the device-busy time of a profiled repeat. Returns the
     launch counts and times."""
@@ -1844,11 +1955,9 @@ def phase_dense_serve(name, device):
     full_layers = registry.get(name).n_layers
     layers, off = cfg.n_layers, prefix_len(cfg)
     cut = DEPTH_CUT.get(name, (None, None))[1]
-    say(f"[dense] {name}: {layers} of {full_layers} layers ("
+    say(f"[{tag}] {name}: {layers} of {full_layers} layers ("
         + (f"depth cut: {cut}" if cut else "full depth")
-        + f"), full width: d_model {cfg.d_model}, d_ff {cfg.d_ff}, "
-        f"{cfg.n_heads_padded} query ({cfg.n_heads} + {cfg.head_pad} pad) / "
-        f"{cfg.n_kv_heads} KV heads of {cfg.head_dim_}; {card_line()}")
+        + f"), full width: {describe(cfg)}; {card_line()}")
     argv = ["--arch", name, "--batch", str(LM_BATCH), "--prompt-len",
             str(LM_PROMPT), "--gen", str(LM_GEN)]
     if layers != full_layers:
@@ -1861,7 +1970,7 @@ def phase_dense_serve(name, device):
         return held["params"]
 
     t0 = time.perf_counter()
-    with Checked(BF16_TOL) as chk:
+    with Checked(BF16_TOL) as chk, MoELoad() as moe_load:
         ops.ffn = tally(by_t, ops.ffn)
         lm.init_params = keep
         try:
@@ -1873,24 +1982,38 @@ def phase_dense_serve(name, device):
             lm.init_params = real_init
     serve_s = time.perf_counter() - t0
     t_pre = LM_BATCH * (off + LM_PROMPT)
+    n_flash, n_ffn = launches_per_pass(cfg)
     counts = {"flash": flash_n, "ffn_prefill": by_t.get(t_pre, 0),
               "ffn_decode": by_t.get(LM_BATCH, 0)}
-    want = {"flash": layers, "ffn_prefill": layers,
-            "ffn_decode": layers * (LM_GEN - 1)}
-    check(counts == want and ffn_n == layers * LM_GEN,
+    want = {"flash": n_flash, "ffn_prefill": n_ffn,
+            "ffn_decode": n_ffn * (LM_GEN - 1)}
+    check(counts == want and ffn_n == n_ffn * LM_GEN,
           f"{name}: serve launched {counts} (ffn {ffn_n}, by T {by_t}), "
           f"expected {want}")
     check(gen_tokens.shape == (LM_BATCH, LM_GEN)
           and 0 <= gen_tokens.min() and gen_tokens.max() < cfg.vocab,
           f"{name}: served tokens {gen_tokens.shape}")
-    say(f"[dense] {name} served in {serve_s:.3f} s (seeding and the plain "
+    say(f"[{tag}] {name} served in {serve_s:.3f} s (seeding and the plain "
         f"checks included): launches (flash, ffn) ({flash_n}, {ffn_n}): "
-        f"{layers} flash and {layers} FFN per prefill (FFN T {t_pre}), "
-        f"{layers} FFN per decode step x {LM_GEN - 1}; every call within "
+        f"{n_flash} flash and {n_ffn} FFN per prefill (FFN T {t_pre}), "
+        f"{n_ffn} FFN per decode step x {LM_GEN - 1}; every call within "
         f"{BF16_TOL} of its plain version and relative norm "
         f"{BF16_NORM_TOL} (max |diff| flash {chk.errs['flash']}, ffn "
         f"{chk.errs['ffn']}; relative norm flash {chk.rels['flash']:.6e}, "
         f"ffn {chk.rels['ffn']:.6e})")
+    if cfg.moe is not None:
+        loads = moe_load.calls
+        check(len(loads) == layers, f"{name}: {len(loads)} MoE prefill "
+              f"calls recorded, expected {layers}")
+        first = loads[0]
+        check(sum(first["load"]) == t_pre * cfg.moe.top_k,
+              f"{name}: expert loads {first['load']}")
+        dropped = sum(c["dropped"] for c in loads)
+        say(f"[{tag}] {name} MoE dispatch at prefill (T {t_pre}): capacity "
+            f"{first['capacity']} per expert; {dropped} of "
+            f"{t_pre * cfg.moe.top_k * layers} assignments dropped over "
+            f"{layers} layers ({first['dropped']} in the first); first "
+            f"layer's expert load {first['load']}")
 
     params = held.pop("params")
     rng = np.random.default_rng(0)   # serve's --seed: its prompts, patches
@@ -1910,7 +2033,7 @@ def phase_dense_serve(name, device):
         lm.decode_step(params, cfg, state["cache"],
                        greedy(state["logits"], cfg), off + LM_PROMPT)
 
-    times = time_path(f"dense {name}", (("prefill", do_prefill),
+    times = time_path(f"{tag} {name}", (("prefill", do_prefill),
                                         ("decode step", do_decode)), 2)
     check(np.array_equal(greedy(state["logits"], cfg).cpu().numpy(),
                          gen_tokens[:, 0]),
@@ -1919,7 +2042,8 @@ def phase_dense_serve(name, device):
     del params, state
     torch.cuda.empty_cache()
     return {"layers": layers, "full_layers": full_layers, "counts": counts,
-            "t_prefill": t_pre, "times": times}
+            "per_pass": {"flash": n_flash, "ffn": n_ffn}, "t_prefill": t_pre,
+            "times": times}
 
 
 def phase_encoder_forward(device):
@@ -1960,44 +2084,53 @@ def phase_encoder_forward(device):
     torch.cuda.empty_cache()
     return {"layers": layers, "full_layers": layers, "t_prefill": t,
             "counts": {"flash": counts[0], "ffn_prefill": counts[1],
-                       "ffn_decode": 0}, "times": times}
+                       "ffn_decode": 0},
+            "per_pass": {"flash": layers, "ffn": layers}, "times": times}
 
 
-def phase_dense_kernel_times(device, runs):
-    """Each dense arch's flash and FFN shapes (bf16): CUDA-graph time, the
-    plain version's, the bound; flash beside ``torch.compile(
-    flex_attention)``, the FFN beside the unfused bf16 chain. Launches are
-    the model phases' counts."""
-    gen = torch.Generator(device=device).manual_seed(51)
+def phase_dense_kernel_times(device, runs, names=DENSE_ARCHS, seed=51):
+    """Each arch's flash and FFN shapes (bf16): CUDA-graph time, the plain
+    version's, the bound; flash beside ``torch.compile(flex_attention)``,
+    the FFN beside the unfused bf16 chain. Launches are the model phases'
+    counts. An arch without attention layers (rwkv6) has no flash row; a
+    local-attention arch's flash row has its window."""
+    gen = torch.Generator(device=device).manual_seed(seed)
     bf16 = torch.bfloat16
     n_sm = torch.cuda.get_device_properties(device).multi_processor_count
     rows = []
-    for name in DENSE_ARCHS:
+    for name in names:
         cfg, run = dense_cfg(name), runs[name]
         b, t = LM_BATCH, prefix_len(cfg) + LM_PROMPT
-        h, hkv, hd = cfg.n_heads_padded, cfg.n_kv_heads, cfg.head_dim_
-        q = rand(gen, (b, t, h, hd), bf16, device=device)
-        k, v = (rand(gen, (b, t, hkv, hd), bf16, device=device)
-                for _ in range(2))
-        kw = dict(causal=cfg.causal)
-        kern = lambda: ops.mha(q, k, v, n_kv_heads=hkv, **kw)
-        plain = lambda: ref.mha_ref(q, k, v, **kw)
-        want = plain()
-        err_rel = close(kern(), want, BF16_TOL, f"flash {name}")
-        ms, plain_ms = time_ms(kern, 10, 3), time_ms(plain, 10, 3)
-        library_ms, library_note = flex_attention_library(
-            q, k, v, want, window=None, softcap=None, causal=cfg.causal)
-        rows.append(lm_row(
-            f"flash_attention[{name} prefill B{b} P{t} H{h}/{hkv} d{hd}"
-            f"{'' if cfg.causal else ' non-causal'}]", FLASH_SOURCE,
-            FLASH_REPLACES, run["counts"]["flash"], err_rel, ms, plain_ms,
-            *flash_bound(b, t, h, hkv, hd, causal=cfg.causal), library_ms,
-            library_note, {"shape": [b, t, h, hkv, hd], "arch": name,
-                           "launches_per_prefill": run["layers"],
-                           "launches_per_decode_step": 0}))
-        del q, k, v, want
-        d, f = cfg.d_model, cfg.d_ff
-        wg = rand(gen, (d, f), bf16, d ** -0.5, device) if cfg.gated else None
+        per = run["per_pass"]
+        if per["flash"]:
+            h, hkv, hd = cfg.n_heads_padded, cfg.n_kv_heads, cfg.head_dim_
+            window = cfg.window if "attn_local" in cfg.pattern else None
+            q = rand(gen, (b, t, h, hd), bf16, device=device)
+            k, v = (rand(gen, (b, t, hkv, hd), bf16, device=device)
+                    for _ in range(2))
+            kw = dict(causal=cfg.causal, window=window)
+            kern = lambda: ops.mha(q, k, v, n_kv_heads=hkv, **kw)
+            plain = lambda: ref.mha_ref(q, k, v, **kw)
+            want = plain()
+            err_rel = close(kern(), want, BF16_TOL, f"flash {name}")
+            ms, plain_ms = time_ms(kern, 10, 3), time_ms(plain, 10, 3)
+            library_ms, library_note = flex_attention_library(
+                q, k, v, want, window=window, softcap=None,
+                causal=cfg.causal)
+            rows.append(lm_row(
+                f"flash_attention[{name} prefill B{b} P{t} H{h}/{hkv} d{hd}"
+                f"{'' if cfg.causal else ' non-causal'}"
+                f"{f' window {window}' if window else ''}]", FLASH_SOURCE,
+                FLASH_REPLACES, run["counts"]["flash"], err_rel, ms,
+                plain_ms, *flash_bound(b, t, h, hkv, hd, causal=cfg.causal),
+                library_ms, library_note,
+                {"shape": [b, t, h, hkv, hd], "arch": name,
+                 "launches_per_prefill": per["flash"],
+                 "launches_per_decode_step": 0}))
+            del q, k, v, want
+        d = cfg.d_model
+        f, gated, act = ffn_dims(cfg)
+        wg = rand(gen, (d, f), bf16, d ** -0.5, device) if gated else None
         wu = rand(gen, (d, f), bf16, d ** -0.5, device)
         wd = rand(gen, (f, d), bf16, f ** -0.5, device)
         phases = [("prefill", run["t_prefill"], run["counts"]["ffn_prefill"])]
@@ -2005,13 +2138,13 @@ def phase_dense_kernel_times(device, runs):
             phases.append(("decode", b, run["counts"]["ffn_decode"]))
         for phase, tt, n_launch in phases:
             x = rand(gen, (tt, d), bf16, device=device)
-            kern = lambda: ops.ffn(x, wg, wu, wd, act=cfg.act)
-            plain = lambda: ref.fused_ffn_ref(x, wg, wu, wd, act=cfg.act)
+            kern = lambda: ops.ffn(x, wg, wu, wd, act=act)
+            plain = lambda: ref.fused_ffn_ref(x, wg, wu, wd, act=act)
             err_rel = close(kern(), plain(), BF16_TOL, f"ffn {name} T {tt}")
             pl = fused_ffn.plan(tt, d, f, bf16, n_sm)
-            chain_ms = time_ms(lambda: unfused_chain(x, wg, wu, wd, cfg.act),
+            chain_ms = time_ms(lambda: unfused_chain(x, wg, wu, wd, act),
                                10, 3)
-            factor = ffn_work_factor(tt, d, f, cfg.gated, n_sm)
+            factor = ffn_work_factor(tt, d, f, gated, n_sm)
             resident = fused_ffn.max_active_clusters(tt, d, f, n_sm)
             clusters = pl.slices * pl.grid[1] * pl.grid[2]
             waves = -(-clusters // max(resident, 1))
@@ -2021,16 +2154,18 @@ def phase_dense_kernel_times(device, runs):
                 f"{pl.ws_bytes} B; {resident} clusters resident, {waves} "
                 f"waves; {factor:.4f}x the FFN's operations; the unfused bf16 "
                 f"chain (a yardstick the port never calls) {chain_ms:.6f} ms")
+            role = ("shared expert " if cfg.moe is not None else
+                    "channel mix " if "rwkv" in cfg.pattern else "")
             rows.append(lm_row(
-                f"fused_ffn[{name} {phase} T{tt} d{d} d_ff{f} {cfg.act}"
-                f"{'' if cfg.gated else ' ungated'}]", FFN_SOURCE,
+                f"fused_ffn[{name} {role}{phase} T{tt} d{d} d_ff{f} {act}"
+                f"{'' if gated else ' ungated'}]", FFN_SOURCE,
                 FFN_REPLACES, n_launch, err_rel, time_ms(kern, 10, 3),
                 time_ms(plain, 10, 3),
-                *ffn_bound(tt, d, f, gated=cfg.gated), None, NO_FFN_LIBRARY,
+                *ffn_bound(tt, d, f, gated=gated), None, NO_FFN_LIBRARY,
                 {"shape": [tt, d, f], "arch": name,
-                 "launches_per_prefill": run["layers"]
+                 "launches_per_prefill": per["ffn"]
                  if phase == "prefill" else 0,
-                 "launches_per_decode_step": run["layers"]
+                 "launches_per_decode_step": per["ffn"]
                  if phase == "decode" else 0,
                  "slices": pl.slices, "cluster": pl.cluster,
                  "cols": pl.cols, "groups": pl.groups,
@@ -2043,18 +2178,18 @@ def phase_dense_kernel_times(device, runs):
     return rows
 
 
-def dense_summary(runs):
-    """One line per dense arch: prefill ms, decode tok/s, busy, idle."""
+def dense_summary(runs, tag="dense-summary"):
+    """One line per arch of ``runs``: prefill ms, decode tok/s, busy,
+    idle."""
     card = card_line()
-    for name in DENSE_ARCHS:
-        run = runs[name]
+    for name, run in runs.items():
         for step, (host_ms, busy_ms) in run["times"].items():
             rate = (f", {LM_BATCH / host_ms * 1e3:.3f} tok/s"
                     if step == "decode step" else "")
             busy = ("busy not measured" if busy_ms is None else
                     f"busy {busy_ms:.6f} ms, idle share "
                     f"{1 - busy_ms / host_ms:.2%}")
-            say(f"[dense-summary] {name} ({run['layers']} of "
+            say(f"[{tag}] {name} ({run['layers']} of "
                 f"{run['full_layers']} layers) {step} B{LM_BATCH}: "
                 f"{host_ms:.6f} ms host clock{rate}; {busy}; launches "
                 f"{run['counts']}; {card}")
@@ -2110,11 +2245,18 @@ def main() -> int:
 
     t0 = time.perf_counter()
     phase_dense_kernel_vs_plain(device)
-    runs = {name: phase_dense_serve(name, device) for name in DENSE_DECODERS}
+    runs = {name: phase_arch_serve(name, device) for name in DENSE_DECODERS}
     runs[ENCODER] = phase_encoder_forward(device)
     entries += phase_dense_kernel_times(device, runs)
     dense_summary(runs)
     say(f"[dense] phases 20-24: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    family = {name: phase_arch_serve(name, device, "family")
+              for name in FAMILY_ARCHS}
+    entries += phase_dense_kernel_times(device, family, FAMILY_ARCHS, 61)
+    dense_summary(family, "family-summary")
+    say(f"[family] phases 25-27: {time.perf_counter() - t0:.2f} s")
     say(card_line())
     say("kernels " + json.dumps(entries))
     say(json.dumps({"kernels": entries}))

@@ -1,10 +1,8 @@
-"""Registry of the LM architectures the port runs.
+"""Registry of the LM architectures the port runs: all ten of the
+reference's.
 
-Only ported architectures are listed. The reference's other archs raise on
-``get``/``get_smoke`` and name the ROADMAP item that ports them.
-
-``cells()`` enumerates the (arch x input-shape) grid of the ported archs
-with per-cell applicability, as the reference's registry does:
+``cells()`` enumerates the (arch x input-shape) grid with per-cell
+applicability, as the reference's registry does:
 
 * encoder-only archs (hubert) have no decode step -> decode shapes N/A;
 * long_500k needs sub-quadratic attention -> N/A for full-attention archs.
@@ -25,14 +23,13 @@ _MODULES = {
     "qwen2-72b": "repro_torch.configs.qwen2_72b",
     "internvl2-1b": "repro_torch.configs.internvl2_1b",
     "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a27b",
+    "llama4-scout-17b-a16e": "repro_torch.configs.llama4_scout_17b_a16e",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
+    "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
 }
 
 ARCH_NAMES: Tuple[str, ...] = tuple(_MODULES)
-
-# The reference's archs that the port does not run yet.
-NOT_PORTED: Tuple[str, ...] = (
-    "recurrentgemma-9b", "llama4-scout-17b-a16e", "qwen2-moe-a2.7b",
-    "rwkv6-3b")
 
 # archs whose every layer is O(T) or windowed => long_500k runnable
 SUBQUADRATIC = ("recurrentgemma-9b", "rwkv6-3b")
@@ -41,12 +38,8 @@ ENCODER_ONLY = ("hubert-xlarge",)
 
 
 def _module(name: str):
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ROADMAP.md Queue 1, item 5: "
-            "MoE, RG-LRU and RWKV6 after the dense configs)")
     if name not in _MODULES:
-        raise KeyError(f"unknown arch {name!r}; ported: {ARCH_NAMES}")
+        raise KeyError(f"unknown arch {name!r}; one of {ARCH_NAMES}")
     return importlib.import_module(_MODULES[name])
 
 

@@ -8,6 +8,9 @@ the card through the hand-written kernels.
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-72b \
         --layers 32 --batch 4 --prompt-len 512 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch llama4-scout-17b-a16e --layers 12 --batch 4 --prompt-len 512 \
+        --gen 16
     PYTHONPATH=src python -m repro_torch.launch.serve --mobilenet --batch 256
 
 ``--arch`` runs the reference launcher's LM loop with seeded random
@@ -16,15 +19,18 @@ weights: one prefill of ``--batch`` prompts of ``--prompt-len`` tokens, then
 Every ported arch but the encoder-only hubert-xlarge, which exits as the
 reference launcher does. For the vision stub (internvl2-1b) the prompts
 follow ``n_patches`` patch embeddings drawn from ``--seed`` (scale 0.02),
-and the KV cache and decode positions count them. ``--layers`` cuts the
-depth (a model too large for one card at full depth, such as qwen2-72b's
-145 GB in bf16); the width stays the config's.
+and the KV cache and decode positions count them. The MoE, recurrent
+(RG-LRU) and rwkv layer kinds carry their own state in the cache. ``--layers``
+cuts the depth (a model too large for one card at full depth, such as
+qwen2-72b's 145 GB or llama4-scout's 216.5 GB in bf16); the width stays the
+config's.
 ``--attn-impl`` and ``--block-impl`` set the config's attention and FFN
 disciplines; their defaults, ``kernel`` and ``fused``, run the flash-
 attention and fused-FFN kernels on a card (``--attn-impl fused
 --block-impl reference`` is the reference launcher's own setting). On a
-card the weights are stored in the config's dtype (bf16), norm scales in
-f32.
+card the weights are stored in the config's dtype (bf16), norm scales and
+the leaves the reference uses at their f32 masters (``layers.F32_LEAVES``)
+in f32.
 
 ``--mobilenet`` sweeps batch sizes 1, 2, 4, ... up to ``--batch``; each size
 runs one warm-up forward, then one timed forward between two

@@ -49,6 +49,35 @@ def init_rms(d: int, device=None) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Parameter leaves
+# ---------------------------------------------------------------------------
+
+# Leaves the reference uses at their f32 masters also when it computes in
+# bf16 (it never casts them to the compute dtype), so the port stores them
+# in f32 whatever the model's dtype, as it does every norm scale: the MoE
+# router (``moe.py:74``: in bf16 it would change which experts a token goes
+# to), RG-LRU's gates, temporal conv and Lambda, RWKV6's decay, bonus and
+# ln_x.
+F32_LEAVES = frozenset({
+    "router",
+    "conv_w", "conv_b", "w_a", "b_a", "w_x", "b_x", "lambda",
+    "decay_A", "decay_B", "decay_base", "bonus_u", "ln_x"})
+
+
+def leaf_dtype(name: str, dtype: torch.dtype) -> torch.dtype:
+    """The dtype a parameter leaf named ``name`` is stored in: f32 for norm
+    scales and ``F32_LEAVES``, ``dtype`` for every other leaf."""
+    return torch.float32 if "norm" in name or name in F32_LEAVES else dtype
+
+
+def normal_leaf(gen, name: str, shape, scale: float, device, dtype):
+    """Seeded normal weights drawn in f32 from ``gen``, times ``scale``,
+    stored in ``leaf_dtype(name, dtype)``."""
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return w.mul_(scale).to(leaf_dtype(name, dtype))
+
+
+# ---------------------------------------------------------------------------
 # RoPE (with partial-rotary fraction, glm4-style)
 # ---------------------------------------------------------------------------
 

@@ -1,19 +1,21 @@
-"""Composable LM (port of ``repro.models.lm``), dense attention layers only,
-with the reference's two modality stubs.
+"""Composable LM (port of ``repro.models.lm``): one functional model for all
+ten of the reference's archs, with its two modality stubs.
 
 A model is assembled from an ``ArchConfig``: the layer *pattern* (for
-gemma2, ``("attn_local", "attn")``) repeats over ``n_layers``. Whole pattern
-units keep the reference's parameter layout, each leaf stacked on a leading
-``n_units`` axis, and run in a Python loop (the reference's ``lax.scan``);
-remainder layers are the "tail".
+recurrentgemma, ``("recurrent", "recurrent", "attn_local")``) repeats over
+``n_layers``. Whole pattern units keep the reference's parameter layout,
+each leaf stacked on a leading ``n_units`` axis, and run in a Python loop
+(the reference's ``lax.scan``); remainder layers are the "tail".
 
 Every layer is a pre-norm residual pair (with gemma2's sandwich norms)
 
-    x += post1(attn(norm1(x)))
-    x += post2(ffn(norm2(x)))
+    x += post1(sub1(norm1(x)))   # attention | RG-LRU block | RWKV time-mix
+    x += post2(sub2(norm2(x)))   # FFN | MoE | RWKV channel-mix
 
-and the FFN runs the paper's fused expand->mix->project dataflow when
-``cfg.block_impl == "fused"``: on a card, the hand-written fused-FFN kernel.
+and every FFN-shaped sub2 runs the paper's fused expand->mix->project
+dataflow when ``cfg.block_impl == "fused"``: on a card, the hand-written
+fused-FFN kernel (for MoE, its shared expert). An rwkv layer keeps its
+channel-mix weights in ``sub1`` and has ``sub2 = {}``, as in the reference.
 
 Entry points:
 
@@ -29,9 +31,14 @@ no token embedding and takes precomputed ``frames`` (B, T, d_model);
 ``frontend == "vision"`` (internvl2) prepends precomputed ``patches`` (B,
 n_patches, d_model) to the token embeddings, so a decode step after such a
 prefill is at ``pos`` = n_patches + prompt length + step.
-``decode_step`` and ``prefill`` write the KV cache in place: the returned
-cache is the one passed in (decode) or just allocated (prefill).
-MoE, ``recurrent`` (RG-LRU) and ``rwkv`` layers are not ported yet.
+``decode_step`` and ``prefill`` write the cache in place: the returned
+cache is the one passed in (decode) or just allocated (prefill). Its leaves
+keep the reference's dtypes: the KV caches, RG-LRU's conv window and RWKV's
+last tokens in the cache dtype, RG-LRU's ``h`` and RWKV's ``S`` in f32.
+
+The reference's ``forward`` also returns the MoE layers' summed aux loss,
+which only training reads; ``moe.moe_layer`` returns it, and ``forward``
+here returns the logits alone until the training slice.
 """
 
 from __future__ import annotations
@@ -46,23 +53,17 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import fused_ffn as ffnlib
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rg
+from repro_torch.models import rwkv6 as rwkv
 
 Params = Dict[str, Any]
 
 ATTN_KINDS = ("attn", "attn_local")
 FRONTENDS = (None, "audio", "vision")
-_NOT_PORTED = ("ROADMAP.md Queue 1, item 5: MoE, RG-LRU and RWKV6 layers "
-               "come after the dense configs")
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported "
-                                  f"yet ({_NOT_PORTED})")
-    for kind in cfg.pattern:
-        if kind not in ATTN_KINDS:
-            raise NotImplementedError(f"{cfg.name}: layer kind {kind!r} is "
-                                      f"not ported yet ({_NOT_PORTED})")
     if cfg.frontend not in FRONTENDS:
         raise ValueError(f"{cfg.name}: unknown frontend {cfg.frontend!r}; "
                          f"one of {FRONTENDS}")
@@ -73,34 +74,42 @@ def _check_supported(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _normal(gen, shape, scale, device, dtype):
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w * scale).to(dtype)
-
-
 def init_ffn(gen: torch.Generator, cfg: ArchConfig, device=None,
              dtype=torch.float32) -> Params:
     d, f = cfg.d_model, cfg.d_ff
     p = {}
     if cfg.gated:
-        p["w_gate"] = _normal(gen, (d, f), d ** -0.5, device, dtype)
-    p["w_up"] = _normal(gen, (d, f), d ** -0.5, device, dtype)
-    p["w_down"] = _normal(gen, (f, d), f ** -0.5, device, dtype)
+        p["w_gate"] = L.normal_leaf(gen, "w_gate", (d, f), d ** -0.5, device,
+                                    dtype)
+    p["w_up"] = L.normal_leaf(gen, "w_up", (d, f), d ** -0.5, device, dtype)
+    p["w_down"] = L.normal_leaf(gen, "w_down", (f, d), f ** -0.5, device,
+                                dtype)
     return p
 
 
 def init_layer(gen: torch.Generator, kind: str, cfg: ArchConfig, device=None,
                dtype=torch.float32) -> Params:
-    """One layer's weights; norm scales are f32 ones whatever ``dtype``."""
-    if kind not in ATTN_KINDS:
-        raise NotImplementedError(f"layer kind {kind!r}: {_NOT_PORTED}")
+    """One layer's weights; norm scales and ``layers.F32_LEAVES`` are f32
+    whatever ``dtype``."""
     p: Params = {"norm1": L.init_rms(cfg.d_model, device),
                  "norm2": L.init_rms(cfg.d_model, device)}
     if cfg.sandwich_norm:
         p["post_norm1"] = L.init_rms(cfg.d_model, device)
         p["post_norm2"] = L.init_rms(cfg.d_model, device)
-    p["sub1"] = L.init_attention(gen, cfg, device, dtype)
-    p["sub2"] = init_ffn(gen, cfg, device, dtype)
+    if kind in ATTN_KINDS:
+        p["sub1"] = L.init_attention(gen, cfg, device, dtype)
+    elif kind == "recurrent":
+        p["sub1"] = rg.init_rglru_block(gen, cfg, device, dtype)
+    elif kind == "rwkv":
+        p["sub1"] = rwkv.init_rwkv_block(gen, cfg, device, dtype)  # cm too
+    else:
+        raise ValueError(f"unknown layer kind {kind!r}")
+    if kind == "rwkv":
+        p["sub2"] = {}                  # channel-mix params live in sub1
+    elif cfg.moe is not None:
+        p["sub2"] = moe_mod.init_moe(gen, cfg, device, dtype)
+    else:
+        p["sub2"] = init_ffn(gen, cfg, device, dtype)
     return p
 
 
@@ -113,49 +122,83 @@ def _norm(x, s, cfg):
     return L.rms_norm(x, s, eps=cfg.norm_eps, zero_centered=cfg.embed_scale)
 
 
-def _ffn(h, p, cfg: ArchConfig):
-    return ffnlib.ffn_apply(h, p, gated=cfg.gated, act_name=cfg.act,
-                            impl=cfg.block_impl, chunk=cfg.ffn_chunk)
+def _sub2(h, p, kind: str, cfg: ArchConfig, cache=None):
+    """The second half's block on the normed h: (y, cache). rwkv's
+    channel-mix carries its last token in the cache; MoE's aux loss is
+    dropped here (see the module docstring)."""
+    if kind == "rwkv":
+        return rwkv.channel_mix(h, p["sub1"], cfg, cache)
+    if cfg.moe is not None:
+        return moe_mod.moe_layer(h, p["sub2"], cfg)[0], cache
+    return ffnlib.ffn_apply(h, p["sub2"], gated=cfg.gated, act_name=cfg.act,
+                            impl=cfg.block_impl, chunk=cfg.ffn_chunk), cache
 
 
-def _ffn_half(x, p, cfg: ArchConfig):
-    y = _ffn(_norm(x, p["norm2"], cfg), p["sub2"], cfg)
+def _residual(x, y, p, post: str, cfg: ArchConfig):
     if cfg.sandwich_norm:
-        y = _norm(y, p["post_norm2"], cfg)
+        y = _norm(y, p[post], cfg)
     return x + y
 
 
-def _attn_residual(x, y, p, cfg: ArchConfig):
-    if cfg.sandwich_norm:
-        y = _norm(y, p["post_norm1"], cfg)
-    return x + y
+def _second_half(x, p, kind, cfg: ArchConfig, cache=None):
+    y, cache = _sub2(_norm(x, p["norm2"], cfg), p, kind, cfg, cache)
+    return _residual(x, y, p, "post_norm2", cfg), cache
 
 
 def layer_apply(x, p: Params, kind: str, cfg: ArchConfig):
     """Full-sequence layer."""
-    y = L.attention_layer(_norm(x, p["norm1"], cfg), p["sub1"], cfg,
-                          local=(kind == "attn_local"))
-    return _ffn_half(_attn_residual(x, y, p, cfg), p, cfg)
+    h = _norm(x, p["norm1"], cfg)
+    if kind in ATTN_KINDS:
+        y = L.attention_layer(h, p["sub1"], cfg, local=(kind == "attn_local"))
+    elif kind == "recurrent":
+        y = rg.rglru_block(h, p["sub1"], cfg)
+    else:
+        y, _ = rwkv.time_mix(h, p["sub1"], cfg)
+    return _second_half(_residual(x, y, p, "post_norm1", cfg), p, kind,
+                        cfg)[0]
 
 
 def init_layer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
                      dtype=torch.bfloat16, device=None) -> Params:
-    if kind not in ATTN_KINDS:
-        raise NotImplementedError(f"layer kind {kind!r}: {_NOT_PORTED}")
-    return L.init_kv_cache(cfg, batch, max_len, local=(kind == "attn_local"),
-                           dtype=dtype, device=device)
+    if kind in ATTN_KINDS:
+        return L.init_kv_cache(cfg, batch, max_len,
+                               local=(kind == "attn_local"), dtype=dtype,
+                               device=device)
+    if kind == "recurrent":
+        return rg.init_rglru_cache(cfg, batch, dtype, device)
+    if kind == "rwkv":
+        return rwkv.init_rwkv_cache(cfg, batch, dtype, device)
+    raise ValueError(f"unknown layer kind {kind!r}")
 
 
 def layer_prefill(x, p, kind, cfg, cache):
-    y, cache = L.attention_prefill(_norm(x, p["norm1"], cfg), p["sub1"], cfg,
-                                   cache, local=(kind == "attn_local"))
-    return _ffn_half(_attn_residual(x, y, p, cfg), p, cfg), cache
+    """Returns (x, cache): the attention layers' KV cache is written in
+    place; the recurrent and rwkv layers return new state, which the
+    caller stores."""
+    h = _norm(x, p["norm1"], cfg)
+    if kind in ATTN_KINDS:
+        y, cache = L.attention_prefill(h, p["sub1"], cfg, cache,
+                                       local=(kind == "attn_local"))
+    elif kind == "recurrent":
+        y, cache = rg.rglru_prefill(h, p["sub1"], cfg, cache)
+    else:
+        y, cache = rwkv.time_mix(h, p["sub1"], cfg, cache)
+    return _second_half(_residual(x, y, p, "post_norm1", cfg), p, kind, cfg,
+                        cache)
 
 
 def layer_decode(x, p, kind, cfg, cache, pos: int):
-    y, cache = L.attention_decode(_norm(x, p["norm1"], cfg), p["sub1"], cfg,
-                                  cache, pos, local=(kind == "attn_local"))
-    return _ffn_half(_attn_residual(x, y, p, cfg), p, cfg), cache
+    """As ``layer_prefill``, one token at absolute position ``pos``."""
+    h = _norm(x, p["norm1"], cfg)
+    if kind in ATTN_KINDS:
+        y, cache = L.attention_decode(h, p["sub1"], cfg, cache, pos,
+                                      local=(kind == "attn_local"))
+    elif kind == "recurrent":
+        y, cache = rg.rglru_decode(h, p["sub1"], cfg, cache)
+    else:
+        y, cache = rwkv.time_mix(h, p["sub1"], cfg, cache)
+    return _second_half(_residual(x, y, p, "post_norm1", cfg), p, kind, cfg,
+                        cache)
 
 
 # ---------------------------------------------------------------------------
@@ -197,7 +240,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda",
                 dtype=None) -> Params:
     """Seeded random weights drawn on ``device`` from a ``torch.Generator``
     (not the reference's ``jax.random`` numbers). Matrices are stored in
-    ``dtype`` (default ``cfg.dtype``), norm scales in f32."""
+    ``dtype`` (default ``cfg.dtype``), norm scales and
+    ``layers.F32_LEAVES`` in f32."""
     _check_supported(cfg)
     dev = resolve_device(device)
     dt = getattr(torch, cfg.dtype) if dtype is None else dtype
@@ -206,7 +250,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda",
     vp, d = cfg.vocab_padded(), cfg.d_model
     p: Params = {}
     if cfg.frontend != "audio":   # audio: precomputed frames, no embedding
-        p["embed"] = _normal(gen, (vp, d), d ** -0.5, dev, dt)
+        p["embed"] = L.normal_leaf(gen, "embed", (vp, d), d ** -0.5, dev, dt)
     if cfg.n_units > 0:
         p["units"] = _stacked_units(gen, cfg, dev, dt)
     if cfg.tail_kinds:
@@ -214,7 +258,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda",
                      for i, kind in enumerate(cfg.tail_kinds)}
     p["final_norm"] = L.init_rms(d, dev)
     if not cfg.tie_embeddings:
-        p["lm_head"] = _normal(gen, (d, vp), d ** -0.5, dev, dt)
+        p["lm_head"] = L.normal_leaf(gen, "lm_head", (d, vp), d ** -0.5, dev,
+                                     dt)
     return p
 
 
@@ -222,7 +267,8 @@ def params_from_numpy(tree, cfg: ArchConfig, device="cuda",
                       dtype=None) -> Params:
     """Carry the reference's parameter tree across: nested dicts of numpy
     arrays (``units`` stacked on a leading axis, as the reference stores
-    them). Norm scales stay f32; every other leaf is cast to ``dtype``
+    them). Norm scales and ``layers.F32_LEAVES``, which the reference uses
+    at their f32 masters, stay f32; every other leaf is cast to ``dtype``
     (default ``cfg.dtype``) once here, where the reference casts its f32
     masters at every use, so the values are the same."""
     _check_supported(cfg)
@@ -233,8 +279,7 @@ def params_from_numpy(tree, cfg: ArchConfig, device="cuda",
         if isinstance(node, Mapping):
             return {k: carry(v, k) for k, v in node.items()}
         t = torch.from_numpy(np.array(node, dtype=np.float32, copy=True))
-        keep_f32 = "norm" in name
-        return t.to(device=dev, dtype=torch.float32 if keep_f32 else dt)
+        return t.to(device=dev, dtype=L.leaf_dtype(name, dt))
 
     return carry(tree)
 
@@ -312,8 +357,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
         for i, kind in enumerate(cfg.pattern):
             one = init_layer_cache(cfg, kind, batch, max_len, dtype, device)
             cache["units"][str(i)] = {
-                k: torch.zeros((cfg.n_units,) + tuple(a.shape), dtype=dtype,
-                               device=a.device) for k, a in one.items()}
+                k: torch.zeros((cfg.n_units,) + tuple(a.shape),
+                               dtype=a.dtype, device=a.device)
+                for k, a in one.items()}
     if cfg.tail_kinds:
         cache["tail"] = {str(i): init_layer_cache(cfg, kind, batch, max_len,
                                                   dtype, device)
@@ -322,9 +368,18 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def _layer_cache(cache: Params, key) -> Params:
+    """Views of one layer's leaves in the (stacked) cache."""
     group, u, i = key
     c = cache[group][i]
-    return c if u is None else {"k": c["k"][u], "v": c["v"][u]}
+    return c if u is None else {k: a[u] for k, a in c.items()}
+
+
+def _store(view: Params, new: Params) -> None:
+    """Write a layer's new state into its cache views (a no-op for the
+    leaves an attention layer already wrote in place)."""
+    for k, a in new.items():
+        if a is not view[k]:
+            view[k].copy_(a)
 
 
 def prefill(params, cfg: ArchConfig, tokens=None, patches=None, frames=None,
@@ -335,7 +390,9 @@ def prefill(params, cfg: ArchConfig, tokens=None, patches=None, frames=None,
     b, t = x.shape[0], x.shape[1]
     cache = init_cache(cfg, b, max_len or t, cache_dtype, x.device)
     for p, kind, key in _layers(params, cfg):
-        x, _ = layer_prefill(x, p, kind, cfg, _layer_cache(cache, key))
+        view = _layer_cache(cache, key)
+        x, new = layer_prefill(x, p, kind, cfg, view)
+        _store(view, new)
     return _head(params, cfg, x[:, -1:])[:, 0], cache
 
 
@@ -347,5 +404,7 @@ def decode_step(params, cfg: ArchConfig, cache, token, pos: int):
         raise ValueError(f"{cfg.name} is encoder-only: it has no decode step")
     x = _embed(params, cfg, _tokens(token, _device(params))[:, None])
     for p, kind, key in _layers(params, cfg):
-        x, _ = layer_decode(x, p, kind, cfg, _layer_cache(cache, key), int(pos))
+        view = _layer_cache(cache, key)
+        x, new = layer_decode(x, p, kind, cfg, view, int(pos))
+        _store(view, new)
     return _head(params, cfg, x)[:, 0], cache

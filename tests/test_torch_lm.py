@@ -1,9 +1,9 @@
 """The port's LM (gemma2, dense attention) against the JAX package on the
-CPU: configs (every ported arch's; the other dense archs' models are held in
-tests/test_torch_lm_archs.py), attention prefill/decode with the ring-buffer
-KV cache, and
-the smoke model's prefill plus greedy decode carried across through
-``params_from_numpy``.
+CPU: configs (every arch's; the other archs' models are held in
+tests/test_torch_lm_archs.py and tests/test_torch_lm_families.py), each
+layer kind's parameter shapes, attention prefill/decode with the
+ring-buffer KV cache, and the smoke model's prefill plus greedy decode
+carried across through ``params_from_numpy``.
 
 The JAX model runs with ``attn_impl="pallas"`` (interpret mode) and
 ``block_impl="fused"``; the port with ``attn_impl="kernel"``, whose CPU path
@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from repro.configs import registry as jreg
+from repro.configs.base import MoESpec as JMoESpec
 from repro.models import layers as jL
 from repro.models import lm as jlm
 from repro_torch.configs import registry as treg
@@ -61,7 +62,8 @@ def _np(x):
 
 
 PORTED = ("gemma2-9b", "qwen3-14b", "glm4-9b", "qwen2-72b", "internvl2-1b",
-          "hubert-xlarge")
+          "hubert-xlarge", "qwen2-moe-a2.7b", "llama4-scout-17b-a16e",
+          "recurrentgemma-9b", "rwkv6-3b")
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -80,12 +82,19 @@ def test_gemma2_config_matches_reference(name):
 
 
 @pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "rwkv6-3b",
-                                  "llama4-scout-17b-a16e"])
+                                  "llama4-scout-17b-a16e",
+                                  "recurrentgemma-9b"])
 def test_unported_archs_raise_naming_roadmap(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        treg.get(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        treg.get_smoke(name)
+    """The MoE, RG-LRU and RWKV6 archs resolve to the reference's configs
+    (full and smoke, ``param_count`` included); only an unknown name
+    raises."""
+    assert dataclasses.asdict(treg.get(name)) == dataclasses.asdict(
+        jreg.get(name))
+    assert dataclasses.asdict(treg.get_smoke(name)) == dataclasses.asdict(
+        jreg.get_smoke(name))
+    assert treg.get(name).param_count() == jreg.get(name).param_count()
+    assert treg.get(name).active_param_count() == \
+        jreg.get(name).active_param_count()
     with pytest.raises(KeyError):
         treg.get("no-such-arch")
 
@@ -96,9 +105,17 @@ def test_unported_archs_raise_naming_roadmap(name):
     dict(pattern=("rwkv",)),
 ])
 def test_unported_layer_kinds_raise(over):
+    """Each layer kind and MoE, on gemma2's smoke config: ``init_params``
+    gives the shapes of ``jlm.abstract_params`` for the same config."""
+    jover = dict(over)
+    if "moe" in over:
+        jover["moe"] = JMoESpec(**dataclasses.asdict(over["moe"]))
+    jcfg = dataclasses.replace(jreg.get_smoke("gemma2-9b"), **jover)
     cfg = dataclasses.replace(treg.get_smoke("gemma2-9b"), **over)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.init_params(cfg, 0, device="cpu")
+    want = jax.tree.map(lambda s: tuple(s.shape), jlm.abstract_params(jcfg))
+    got = jax.tree.map(lambda t: tuple(t.shape),
+                       tlm.init_params(cfg, 0, device="cpu"))
+    assert got == want
 
 
 def test_init_params_shapes_match_reference_and_seed():
