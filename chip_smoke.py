@@ -13,7 +13,9 @@ the fast path and the network on the card, the rest of the dense LM
 family (qwen3-14b, glm4-9b, qwen2-72b at reduced depth and internvl2-1b
 served, hubert-xlarge's forward) and the MoE, RG-LRU and RWKV6 families
 (qwen2-moe-a2.7b, llama4-scout-17b-a16e at reduced depth, recurrentgemma-9b,
-rwkv6-3b served) through the same two kernels. Phases:
+rwkv6-3b served) through the same two kernels, and training: gradients
+through both kernels and internvl2-1b trained at full width through
+``launch.train`` with a restart from its checkpoint. Phases:
 
 1. the card's name and power limit (nvidia-smi); no CUDA device -> fail;
 2. build every kernel from src/repro_torch/kernels/csrc (one nvcc each, all
@@ -159,12 +161,38 @@ rwkv6-3b served) through the same two kernels. Phases:
    pad heads for llama4; the FFN as a shared expert at d_model 2048 and
    5120, GeGLU at 4096, ungated relu_sq at 2560), beside the plain version,
    the bound, flex or the unfused bf16 chain;
-27. one summary line per family arch, as phase 24.
+27. one summary line per family arch, as phase 24;
+28. gradients through the kernels: each of the ten smoke archs in f32 and
+   bf16 compute on f32 master weights, one ``lm.loss_fn`` + backward with
+   ``attn_impl="kernel"`` / ``block_impl="fused"`` (remat ``full``) against
+   the same with the kernels' plain versions in their place, the MoE
+   layers routed as the kernel run routed them; none missing or zero where
+   the plain one is not, the launches one flash and one FFN per layer in
+   the forward and again per unit layer in the remat's recompute. Held:
+   every flash and FFN call of the kernel run, again on its recorded
+   inputs, output and input gradients against the plain version's within
+   2e-5 (f32) or 2e-2 and relative norm 1e-2 (bf16); every parameter's
+   gradient within 2e-5 (f32) or a relative norm of
+   ``BF16_MODEL_NORM_TOL`` (bf16, beside the control: the plain bf16
+   gradient's distance from the plain f32 one);
+29. training's entry point: ``launch.train.main`` on internvl2-1b at full
+   width and depth (B 4, 256 seeded patch embeddings before 512 tokens, f32
+   AdamW state), checkpoints every 3 steps under ``build/``, a preemption
+   injected at step 4, the restart from step 3; the loss trajectory, ms per
+   step, tokens/s, launches per step, and the resumed trajectory against an
+   uninterrupted run from the same seed;
+30. the same model under remat none | zero_buffer | full: host-clock ms
+   per step, tokens/s, the device busy and idle share of a profiled step,
+   peak device memory of a step, launches per step; then the FFN and flash
+   kernels' forward (CUDA-graph replays) against their backward through
+   the plain versions (CUDA events) at the step's shapes.
 
 The last stdout line is {"ok": true, "device": {...}}; the line before it is
 the {"kernels": [...]} record, whose DSC rows also carry the kernel's
 launches per fast-path call under each schedule and per spot check (the
-fast path's and the rest of the check's, as phase 17 counted them).
+fast path's and the rest of the check's, as phase 17 counted them), and
+whose flash and FFN rows carry their launches per train step as counted
+(phase 29; the forward's and each remat mode's, phase 30).
 """
 
 from __future__ import annotations
@@ -196,14 +224,19 @@ from repro_torch.cfu.network import (random_chain_params,  # noqa: E402
 from repro_torch.core import dsc, quant  # noqa: E402
 from repro_torch.core.dsc import DSCBlockSpec as S  # noqa: E402
 from repro_torch.core.fusion import Schedule  # noqa: E402
+from repro_torch import tree  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
+from repro_torch.configs.base import InputShape  # noqa: E402
+from repro_torch.data import SyntheticLMData  # noqa: E402
 from repro_torch.kernels import (build, flash_attention, fused_dsc,  # noqa: E402
                                  fused_ffn, ops, ref)
 from repro_torch.launch import cfu as cfu_cli  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import mobilenetv2 as mnv2  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from repro_torch.runtime import steps as steps_mod  # noqa: E402
 
 # H100 SXM published dense peaks (NVIDIA data sheet), at a 700 W limit.
 PEAK_INT8_OPS = 1979e12
@@ -1083,6 +1116,12 @@ F32_TOL, BF16_TOL = 2e-5, 2e-2   # tests/test_kernels.py's tolerances
 # 1e-2 (two bf16 roundings of one value differ by ~4e-3 at most), so a
 # structured fault that hides under the elementwise 2e-2 cannot pass.
 BF16_NORM_TOL = 1e-2
+# A whole bf16 smoke model's gradients, kernel run vs plain run, relative
+# norm per leaf (phase 28), on an NVIDIA H100: the largest reading on sound
+# runs is 7.665e-2 (gemma2-9b, the same in three runs), the control (plain
+# bf16 vs plain f32) reads 1.1e-2 to 1.627e-1 (PERF.md §6, PR 21). Each
+# kernel call is held to BF16_TOL and BF16_NORM_TOL on its own.
+BF16_MODEL_NORM_TOL = 0.1
 NO_FFN_LIBRARY = "no single PyTorch call computes the gated FFN"
 # (b, tq, tk, h, hkv, d, causal, window, softcap): tests/test_torch_kernels.py
 # test_flash_attention_cuda_matches_plain's cases for the wgmma kernel's edges
@@ -2195,6 +2234,428 @@ def dense_summary(runs, tag="dense-summary"):
                 f"{run['counts']}; {card}")
 
 
+# ---------------------------------------------------------------------------
+# Training (phases 28-30)
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "internvl2-1b"
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+GRAD_B, GRAD_T = 2, 64
+
+
+def train_launches(cfg):
+    """(flash, FFN) launches of one ``loss_fn`` + backward: one per layer in
+    the forward, and one more per pattern-unit layer where the remat
+    recomputes it in the backward pass (``full``: the whole unit;
+    ``zero_buffer``: its attention and FFN cores); the tail is not
+    rematerialized, as in the reference."""
+    fwd = launches_per_pass(cfg)
+    if cfg.remat == "none":
+        return fwd
+    units = dataclasses.replace(cfg, n_layers=cfg.n_units * len(cfg.pattern))
+    again = launches_per_pass(units)
+    return fwd[0] + again[0], fwd[1] + again[1]
+
+
+def train_batch(cfg, rng, b=GRAD_B, t=GRAD_T):
+    """A seeded numpy batch: tokens (and patches) or frames, and labels."""
+    batch = {}
+    if cfg.frontend == "audio":
+        batch["frames"] = rng.standard_normal(
+            (b, t, cfg.d_model)).astype(np.float32)
+    else:
+        batch["tokens"] = rng.integers(0, cfg.vocab, (b, t))
+        if cfg.frontend == "vision":
+            batch["patches"] = (rng.standard_normal(
+                (b, cfg.n_patches, cfg.d_model)) * 0.02).astype(np.float32)
+    batch["labels"] = rng.integers(0, cfg.vocab, (b, t))
+    return batch
+
+
+class Routes:
+    """Within the block, records the expert ids of every MoE routing; given
+    ``replay`` (the ids a kernel run recorded, in call order), routes each
+    call to those ids instead, its gates the run's own router
+    probabilities there, and counts the token choices its own top-k would
+    have made otherwise."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+
+    def __enter__(self):
+        self.ids, self.saved, self.flips = [], moe._route, 0
+
+        def routed(xf, p, m):
+            probs, gates, ids = self.saved(xf, p, m)
+            if self.replay is not None:
+                own, ids = ids, self.replay[len(self.ids)]
+                self.flips += int((own != ids).any(dim=-1).sum())
+                gates = probs.gather(-1, ids)
+                if m.top_k > 1:
+                    gates = gates / gates.sum(dim=-1, keepdim=True)
+            self.ids.append(ids.detach().clone())
+            return probs, gates, ids
+
+        moe._route = routed
+        return self
+
+    def __exit__(self, *exc):
+        moe._route = self.saved
+
+
+class Calls:
+    """Within the block, records every ``ops.ffn`` / ``ops.mha`` call: its
+    name, detached copies of its tensors, and its keywords."""
+
+    def __enter__(self):
+        self.calls, self.saved = [], (ops.mha, ops.ffn)
+
+        def recorder(name, fn):
+            def call(*args, **kw):
+                self.calls.append((name, [None if a is None else
+                                          a.detach().clone() for a in args],
+                                   kw))
+                return fn(*args, **kw)
+            return call
+
+        ops.mha, ops.ffn = recorder("mha", ops.mha), recorder("ffn", ops.ffn)
+        return self
+
+    def __exit__(self, *exc):
+        ops.mha, ops.ffn = self.saved
+
+
+def hold_calls(calls, tol, what, gen):
+    """Each recorded call again, through the kernel's differentiable launch
+    and through its plain version on the same inputs: the outputs, and the
+    gradients of both for one seeded output gradient, held within ``tol``
+    (bf16 also by relative norm). Returns the largest relative norms of
+    the outputs and of the gradients."""
+    worst_out = worst_grad = 0.0
+    for n, (name, args, kw) in enumerate(calls):
+        if name == "ffn":
+            fn, plain, plain_kw = ops.ffn, ref.fused_ffn_ref, kw
+        else:
+            fn, plain = ops.mha, ref.mha_ref
+            plain_kw = {k: v for k, v in kw.items() if k != "n_kv_heads"}
+        live = [i for i, a in enumerate(args) if a is not None]
+        a_k = [None if a is None else a.clone().requires_grad_()
+               for a in args]
+        a_p = [None if a is None else a.clone().requires_grad_()
+               for a in args]
+        out_k, out_p = fn(*a_k, **kw), plain(*a_p, **plain_kw)
+        rel = close(out_k.detach(), out_p.detach(), tol,
+                    f"{what} {name} call {n} output")[1]
+        worst_out = max(worst_out, rel)
+        g = rand(gen, out_p.shape, out_p.dtype)
+        gk = torch.autograd.grad(out_k, [a_k[i] for i in live], g)
+        gp = torch.autograd.grad(out_p, [a_p[i] for i in live], g)
+        for i, x, y in zip(live, gk, gp):
+            rel = close(x, y, tol, f"{what} {name} call {n} input {i} "
+                        f"gradient")[1]
+            worst_grad = max(worst_grad, rel)
+    return worst_out, worst_grad
+
+
+def loss_and_grads(cfg, params, batch):
+    loss, _ = lm.loss_fn(params, cfg, batch)
+    grads = torch.autograd.grad(loss, tree.leaves(params), allow_unused=True)
+    torch.cuda.synchronize()
+    return float(loss.detach()), grads
+
+
+def phase_train_grads(device):
+    """Each smoke arch in f32 and bf16 compute (f32 master weights): one
+    ``loss_fn`` + backward through the kernels (``attn_impl="kernel"``,
+    ``block_impl="fused"``, remat ``full``) and one with the kernels' plain
+    versions in their place (``PlainOps``), the MoE layers routed to the
+    kernel run's expert ids (``Routes``); no gradient missing or zero where
+    the plain one is not, and the launches counted. Held:
+
+    * every flash and FFN call of the kernel run, again on its recorded
+      inputs: output and gradients against the plain version's, within
+      2e-5 in f32, 2e-2 and a relative norm of 1e-2 in bf16;
+    * every parameter's gradient against the plain run's: in f32 within
+      2e-5; in bf16 within a relative norm of ``BF16_MODEL_NORM_TOL``. A
+      bf16 model carries each rounding through its depth, so two sound
+      bf16 paths differ far more than one call does (PERF.md §6, PR 21);
+      the plain bf16 gradient's distance from the plain f32 one, the
+      control, is printed beside.
+
+    Every arch is printed before the limits are applied."""
+    t0 = time.perf_counter()
+    failed = []
+    gen = torch.Generator(device=device).manual_seed(28)
+    for name in registry.ARCH_NAMES:
+        for dtype, tol in (("float32", F32_TOL), ("bfloat16", BF16_TOL)):
+            what = f"{name} {dtype}"
+            cfg = dataclasses.replace(
+                registry.get_smoke(name), dtype=dtype, attn_impl="kernel",
+                block_impl="fused")
+            params = lm.init_params(cfg, 5, device, torch.float32)
+            for p in tree.leaves(params):
+                p.requires_grad_(True)
+            batch = train_batch(cfg, np.random.default_rng(5))
+            with Routes() as k_routes, Calls() as calls:
+                reset_lm_counts()
+                k_loss, k_grads = loss_and_grads(cfg, params, batch)
+                counts = lm_counts()
+            want = train_launches(cfg)
+            check(counts == want and len(calls.calls) == sum(counts),
+                  f"{what}: loss + backward launched (flash, ffn) {counts} "
+                  f"in {len(calls.calls)} calls, expected {want}")
+            with Routes(k_routes.ids) as p_routes, PlainOps():
+                reset_lm_counts()
+                p_loss, p_grads = loss_and_grads(cfg, params, batch)
+                check(lm_counts() == (0, 0), "the plain run launched")
+            f_grads = p_grads
+            if dtype == "bfloat16":
+                with Routes(k_routes.ids), PlainOps():
+                    _, f_grads = loss_and_grads(
+                        dataclasses.replace(cfg, dtype="float32"), params,
+                        batch)
+            if abs(k_loss - p_loss) > tol * max(1.0, abs(p_loss)):
+                failed.append(f"{what}: loss {k_loss} vs plain {p_loss}")
+            worst_err, worst_rel, worst_leaf, control = 0.0, 0.0, "", 0.0
+            for (path, _), g, w, f in zip(tree.flatten_with_path(params),
+                                          k_grads, p_grads, f_grads):
+                check(g is not None and w is not None,
+                      f"{what}: {path} has no gradient")
+                check(bool((g != 0).any()) or not bool((w != 0).any()),
+                      f"{what}: {path}'s gradient is zero through the "
+                      f"kernels, not in the plain run")
+                err, rel = max_err(g, w), rel_norm(g, w)
+                if rel >= worst_rel:
+                    worst_rel, worst_leaf = rel, path
+                worst_err, control = max(worst_err, err), max(
+                    control, rel_norm(w, f))
+                ok = (bool(torch.allclose(g, w, atol=tol, rtol=tol))
+                      if dtype == "float32" else rel < BF16_MODEL_NORM_TOL)
+                if not ok:
+                    failed.append(f"{what}: {path} gradient through the "
+                                  f"kernels vs plain: max |diff| {err}, "
+                                  f"relative norm {rel}")
+            call_out, call_grad = hold_calls(calls.calls, tol, what, gen)
+            routes = ("" if not k_routes.ids else
+                      f" the plain run replayed the kernel run's MoE routing "
+                      f"({p_routes.flips} of "
+                      f"{sum(len(i) for i in k_routes.ids)} token choices "
+                      f"its own router would have made otherwise);")
+            limit = (f"tol {tol}" if dtype == "float32" else
+                     f"relative norm tol {BF16_MODEL_NORM_TOL}; control: the "
+                     f"plain bf16 gradients' largest relative norm from f32 "
+                     f"{control:.3e}")
+            say(f"[train-grads] {what}: loss {k_loss:.6f} (plain "
+                f"{p_loss:.6f}); launches (flash, ffn) {counts};{routes} "
+                f"{len(k_grads)} gradients, max |diff| {worst_err:.3e}, "
+                f"largest relative norm {worst_rel:.3e} ({worst_leaf}; "
+                f"{limit}); {len(calls.calls)} kernel calls again on their "
+                f"inputs: largest relative norm output {call_out:.3e}, "
+                f"gradients {call_grad:.3e} (tol {tol}"
+                f"{'' if dtype == 'float32' else f', {BF16_NORM_TOL}'})")
+            del params, k_grads, p_grads, f_grads, calls
+    check(not failed, "; ".join(failed))
+    say(f"[train-grads] phase 28: {time.perf_counter() - t0:.2f} s")
+
+
+def phase_train_entry(device):
+    """``launch.train`` at internvl2-1b's full width and depth (256 seeded
+    patch embeddings before 512 tokens, B 4), checkpoints every 3 steps, a
+    preemption injected at step 4 (one past the checkpoint), restart from
+    it; the resumed trajectory against an uninterrupted run from the same
+    seed. Returns (flash, FFN) launches per train step."""
+    cfg = dataclasses.replace(registry.get(TRAIN_ARCH), attn_impl="kernel",
+                              block_impl="fused")
+    n_steps, period, fail_at, lr, warmup = 5, 3, 4, 3e-4, 1
+    ckpt_dir = Path(__file__).resolve().parent / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    argv = ["--arch", TRAIN_ARCH, "--batch", str(TRAIN_BATCH), "--seq",
+            str(TRAIN_SEQ), "--steps", str(n_steps), "--lr", str(lr),
+            "--warmup", str(warmup), "--ckpt-dir", str(ckpt_dir),
+            "--ckpt-period", str(period), "--inject-failure-at", str(fail_at)]
+    say(f"[train] launch.train {' '.join(argv)}")
+    reset_lm_counts()
+    t0 = time.perf_counter()
+    rep = train_cli.main(argv)
+    wall = time.perf_counter() - t0
+    counts = lm_counts()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    hist = rep.metrics_history
+    check(rep.restarts == 1 and rep.final_step == n_steps
+          and [m["step"] for m in hist] == [0, 1, 2, 3, 3, 4],
+          f"driver: restarts {rep.restarts}, steps "
+          f"{[m['step'] for m in hist]}")
+    per_step = (counts[0] // len(hist), counts[1] // len(hist))
+    check(counts == (per_step[0] * len(hist), per_step[1] * len(hist))
+          and per_step == train_launches(cfg),
+          f"launch.train launched (flash, ffn) {counts} in {len(hist)} "
+          f"steps, expected {train_launches(cfg)} per step")
+    losses = [m["loss"] for m in hist]
+    check(all(np.isfinite(losses)), f"losses {losses}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = [m["dt"] for m in hist[1:]]
+    say(f"[train] {TRAIN_ARCH}: {cfg.param_count():,} params, f32 AdamW "
+        f"state, {cfg.dtype} compute, remat {cfg.remat}; {rep.steps_run} "
+        f"steps and {rep.restarts} restart in {wall:.3f} s")
+    say(f"[train] loss trajectory (step: loss, ms): " + ", ".join(
+        f"{m['step']}: {m['loss']:.6f} {m['dt'] * 1e3:.3f}" for m in hist))
+    say(f"[train] launches per train step (flash, ffn) {per_step}, "
+        f"counted over the {len(hist)} steps run (remat {cfg.remat}: the "
+        f"forward's and the recompute's in the backward); steps after the "
+        f"first: "
+        f"{np.median(steady) * 1e3:.3f} ms median, "
+        f"{tokens / np.median(steady):.1f} tokens/s ({tokens} text tokens "
+        f"a step, {TRAIN_BATCH * (TRAIN_SEQ + cfg.n_patches)} positions); "
+        f"{card_line()}")
+
+    # the same run without the preemption
+    shape = InputShape("train_cli", TRAIN_SEQ, TRAIN_BATCH, "train")
+    train = steps_mod.TrainSpec(peak_lr=lr, warmup_steps=warmup,
+                                total_steps=n_steps)
+    step = steps_mod.build_train_step(cfg, train, shape, device)
+    state = steps_mod.init_train_state(cfg, 0, train, device)
+    data = SyntheticLMData(cfg, shape, seed=0)
+    straight = []
+    for i in range(n_steps):
+        state, m = step(state, data.batch_at(i))
+        straight.append(float(m["loss"]))
+    del state
+    torch.cuda.empty_cache()
+    resumed = losses[:4] + losses[5:]
+    diff = max(abs(a - b) for a, b in zip(resumed, straight))
+    replay = abs(losses[3] - losses[4])
+    check(diff <= 1e-4 and replay <= 1e-4,
+          f"resumed losses {resumed} vs uninterrupted {straight}")
+    say(f"[train] resumed trajectory vs uninterrupted run: "
+        f"{'bit-equal' if diff == 0.0 else f'max |diff| {diff:.3e}'}; "
+        f"the replayed step 3 "
+        f"{'bit-equal' if replay == 0.0 else f'differs by {replay:.3e}'}; "
+        f"uninterrupted {[round(x, 6) for x in straight]}")
+    return {"per_step": per_step, "remat": cfg.remat, "arch": TRAIN_ARCH}
+
+
+def backward_ms(fn, inputs, reps=10):
+    """ms of the backward of ``fn(*inputs)``, ``torch.autograd.grad`` of a
+    kept output, by CUDA events around ``reps`` calls (each launches
+    milliseconds of work, so the host's issue is a small part)."""
+    out = fn(*inputs)
+    grad = torch.randn_like(out)
+    for _ in range(2):
+        torch.autograd.grad(out, inputs, grad, retain_graph=True)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        torch.autograd.grad(out, inputs, grad, retain_graph=True)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_train_remat(device):
+    """internvl2-1b at full width under remat none | zero_buffer | full:
+    host-clock ms per train step, tokens/s, device busy and idle share of a
+    profiled step, peak device memory of a step; then the flash and FFN
+    kernels' forward against the backward through their plain versions at
+    the step's shapes. Returns each mode's (flash, FFN) launches per step,
+    as counted over three steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    base = dataclasses.replace(registry.get(TRAIN_ARCH), attn_impl="kernel",
+                               block_impl="fused")
+    shape = InputShape("train_cli", TRAIN_SEQ, TRAIN_BATCH, "train")
+    train = steps_mod.TrainSpec(peak_lr=3e-4, warmup_steps=1,
+                                total_steps=100)
+    data = SyntheticLMData(base, shape, seed=1)
+    batches = [data.batch_at(i) for i in range(6)]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    card = card_line()
+    rows = {}
+    for mode in ("none", "zero_buffer", "full"):
+        cfg = dataclasses.replace(base, remat=mode)
+        step = steps_mod.build_train_step(cfg, train, shape, device)
+        state = steps_mod.init_train_state(cfg, 0, train, device)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()     # params, m, v
+        state, _ = step(state, batches[0])
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state, _ = step(state, batches[1])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        reset_lm_counts()
+        t0 = time.perf_counter()
+        for b in batches[2:5]:
+            state, m = step(state, b)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / 3 * 1e3
+        total = lm_counts()
+        counts = tuple(c // 3 for c in total)
+        check(total == tuple(3 * c for c in counts)
+              and counts == train_launches(cfg),
+              f"remat {mode}: (flash, ffn) {counts} per step, expected "
+              f"{train_launches(cfg)}")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, m = step(state, batches[5])
+            torch.cuda.synchronize()
+        on_device = [e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+        by_name = {}
+        for e in on_device:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+        busy = sum(by_name.values()) if on_device else None
+        check(np.isfinite(float(m["loss"])), f"remat {mode}: loss")
+        rows[mode] = (host_ms, busy, peak, resident, counts)
+        say(f"[train-remat] {TRAIN_ARCH} B{TRAIN_BATCH} T{TRAIN_SEQ} (+"
+            f"{base.n_patches} patches) remat {mode}: "
+            f"{busy_line(host_ms, busy, len(on_device))}; "
+            f"{tokens / host_ms * 1e3:.1f} tokens/s; peak of a step "
+            f"{peak / 2**30:.3f} GiB allocated ({(peak - resident) / 2**30:.3f}"
+            f" GiB over the {resident / 2**30:.3f} GiB of params, m and v; "
+            f"{after / 2**30:.3f} GiB between steps); launches (flash, ffn) "
+            f"{counts} a step; {card}")
+        for op, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+            say(f"[train-remat]   {ms:.6f} ms  {op[:90]}")
+        del state, step, m
+        torch.cuda.empty_cache()
+    order = [m for m, _ in sorted(rows.items(), key=lambda kv: -kv[1][2])]
+    say(f"[train-remat] peak memory order: {' > '.join(order)} (predicted "
+        f"none > zero_buffer > full)")
+
+    # the prediction: backward through the plain versions vs the forward;
+    # the forward is the kernel's launch alone (no grad), graph-captured
+    gen = torch.Generator(device=device).manual_seed(3)
+    t = TRAIN_BATCH * (TRAIN_SEQ + base.n_patches)
+    d, f = base.d_model, base.d_ff
+    x = torch.randn((t, d), generator=gen, device=device).to(torch.bfloat16)
+    ws = [(torch.randn(s, generator=gen, device=device) * s[0] ** -0.5)
+          .to(torch.bfloat16) for s in ((d, f), (d, f), (f, d))]
+    ffn_in = [x.requires_grad_()] + [w.requires_grad_() for w in ws]
+    ffn = lambda *a: ops.ffn(*a, act=base.act)
+    with torch.no_grad():
+        ffn_f = time_ms(lambda: ffn(*ffn_in))
+    ffn_b = backward_ms(ffn, ffn_in)
+    hp, hkv, hd = base.n_heads_padded, base.n_kv_heads, base.head_dim_
+    qkv = [torch.randn((TRAIN_BATCH, t // TRAIN_BATCH, n, hd), generator=gen,
+                       device=device).to(torch.bfloat16).requires_grad_()
+           for n in (hp, hkv, hkv)]
+    mha = lambda q, k, v: ops.mha(q, k, v, n_kv_heads=hkv)
+    with torch.no_grad():
+        fa_f = time_ms(lambda: mha(*qkv))
+    fa_b = backward_ms(mha, qkv)
+    say(f"[train-remat] backward through the plain version (CUDA events "
+        f"around 10 calls) vs the kernel's forward (CUDA-graph replays) at "
+        f"the step's shapes, bf16: FFN T{t} d{d} d_ff {f}: forward "
+        f"{ffn_f:.6f} ms, backward {ffn_b:.6f} ms ({ffn_b / ffn_f:.2f}x); "
+        f"flash B{TRAIN_BATCH} T{t // TRAIN_BATCH} H{hp}/{hkv} d{hd} causal: "
+        f"forward {fa_f:.6f} ms, backward {fa_b:.6f} ms "
+        f"({fa_b / fa_f:.2f}x); {card}")
+    return {mode: row[4] for mode, row in rows.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2257,6 +2718,24 @@ def main() -> int:
     entries += phase_dense_kernel_times(device, family, FAMILY_ARCHS, 61)
     dense_summary(family, "family-summary")
     say(f"[family] phases 25-27: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    phase_train_grads(device)
+    per_train_step = phase_train_entry(device)
+    by_remat = phase_train_remat(device)
+    for e in entries:
+        if e["source"] in (FLASH_SOURCE, FFN_SOURCE):
+            i = 0 if e["source"] == FLASH_SOURCE else 1
+            # measured: phase 29's launches over its steps; the forward's
+            # is phase 30's step under remat none, whose backward launches
+            # nothing
+            e["launches_per_train_step"] = {
+                "arch": per_train_step["arch"],
+                "remat": per_train_step["remat"],
+                "forward": by_remat["none"][i],
+                "per_step": per_train_step["per_step"][i],
+                "per_step_by_remat": {m: c[i] for m, c in by_remat.items()}}
+    say(f"[train] phases 28-30: {time.perf_counter() - t0:.2f} s")
     say(card_line())
     say("kernels " + json.dumps(entries))
     say(json.dumps({"kernels": entries}))

@@ -13,7 +13,11 @@ accumulator, so no (tokens, d_ff) tensor exists. ``ffn_apply(impl="fused")``
 on a CUDA tensor runs the same function as the hand-written fused-FFN kernel
 (``kernels/ops.ffn``), which keeps each h chunk in shared memory.
 
-The reference's remat policies belong to training and are not ported yet.
+For training, the remat modes carry the idea to the backward pass
+(``apply_remat``, ``remat_core``): under ``zero_buffer`` the FFN and
+attention cores are recomputed in the backward pass instead of storing
+their (tokens, d_ff) hidden or (T, T) scores, recompute-over-store, the
+trade the paper makes.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import ACTS
@@ -80,6 +85,61 @@ def _pick_chunk(d_ff: int, want: int) -> int:
         if d_ff % c == 0:
             return c
     return d_ff
+
+
+# ---------------------------------------------------------------------------
+# Remat modes: the zero-buffer idea applied to the backward pass.
+# ---------------------------------------------------------------------------
+
+
+REMAT_MODES = ("none", "zero_buffer", "full")
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in REMAT_MODES:
+        raise ValueError(
+            f"unknown remat mode {mode!r}; one of {REMAT_MODES} (the "
+            f"reference's 'dots' is an XLA policy and is not ported)")
+
+
+def checkpointed(fn: Callable) -> Callable:
+    """``fn`` under ``torch.utils.checkpoint`` (non-reentrant): its forward
+    keeps only its inputs for the backward pass, which runs it again. The
+    model draws no random numbers, so no RNG state is carried."""
+    def run(*args, **kwargs):
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False,
+            **kwargs)
+    return run
+
+
+def apply_remat(fn: Callable, mode: str) -> Callable:
+    """A pattern unit's function under remat ``mode``, the reference's
+    per-unit ``jax.checkpoint``:
+
+    * ``none``: every activation autograd needs is stored;
+    * ``zero_buffer``: the unit as is; inside it ``remat_core`` recomputes
+      the FFN and attention cores (the reference's policy that refuses to
+      save the ``ffn_hidden`` and ``attn_scores`` tensors);
+    * ``full``: the whole unit is recomputed from its input (the reference's
+      ``nothing_saveable``).
+
+    The reference's ``dots`` (save only matmul outputs without batch dims)
+    is an XLA policy with no counterpart here; it raises.
+    """
+    _check_mode(mode)
+    return checkpointed(fn) if mode == "full" else fn
+
+
+def remat_core(fn: Callable, mode: str) -> Callable:
+    """An FFN or attention core under ``mode``: checkpointed under
+    ``zero_buffer``, so that its d_ff-wide hidden and its score matrix are
+    recomputed rather than stored; as is otherwise. On the kernel paths the
+    core is an ``autograd.Function`` that saves only its inputs, so there the
+    checkpoint drops only those inputs, and the backward runs the kernel's
+    forward once more."""
+    _check_mode(mode)
+    return checkpointed(fn) if mode == "zero_buffer" else fn
 
 
 # ---------------------------------------------------------------------------

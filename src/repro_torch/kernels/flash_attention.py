@@ -14,6 +14,13 @@ by TMA. ``plan`` states in Python what one bf16 launch is handed (tiles,
 padded head dim, ring depth, shared memory, grid and block order), so the
 CPU tests can check it.
 
+``flash_attention`` is the launch with a gradient (``FlashAttention``): the
+forward launches the kernel and saves only q, k and v, the backward
+recomputes the attention through ``ref.mha_ref`` under grad and returns that
+graph's gradients, the reference's arithmetic (it trains through XLA's
+autodiff of its plain attention). No (Tq, Tk) score matrix is stored between
+the passes.
+
 ``LAUNCHES`` counts the kernel launches this wrapper made, so a run can show
 that its main path went through the kernel.
 """
@@ -26,7 +33,7 @@ from typing import Iterator, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 from repro_torch.kernels.fused_dsc import check_tensor
 
 LAUNCHES = 0
@@ -152,3 +159,36 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention kernel launch failed: {msg} ({err})")
     LAUNCHES += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention_cuda`` with a gradient through the plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, sm_scale):
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap,
+                      sm_scale=sm_scale)
+        ctx.save_for_backward(q, k, v)
+        return flash_attention_cuda(q, k, v, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, grad_o):
+        def plain(q, k, v):
+            return ref.mha_ref(q, k, v, **ctx.kw)
+        return ref.plain_grads(plain, ctx.saved_tensors,
+                               ctx.needs_input_grad[:3], grad_o) + (None,) * 4
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    sm_scale: Optional[float] = None) -> torch.Tensor:
+    """``flash_attention_cuda``'s launch, differentiable in q, k and v:
+    through ``FlashAttention`` when grad is on and an input requires it,
+    else the launch alone (serving)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, softcap,
+                                    sm_scale)
+    return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                softcap=softcap, sm_scale=sm_scale)

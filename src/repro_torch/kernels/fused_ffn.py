@@ -19,6 +19,18 @@ f32 checks) is scalar and splits d_ff over blocks with f32 partials.
 computes it (``fused_ffn_plan`` in the source), so the CPU tests can check
 it.
 
+``fused_ffn`` is the launch with a gradient (``FusedFFN``): the forward
+launches the kernel and saves only its inputs, the backward recomputes the
+FFN through its plain version ``ref.fused_ffn_ref`` under grad and returns
+that graph's gradients: the exact gradient of the function the kernel
+computes (f32 accumulation, h rounded to x's dtype before the down
+projection), as the reference's is XLA's autodiff of its plain FFN (its
+Pallas kernel has no VJP). No (T, d_ff) hidden is stored between the
+passes: the paper's recompute-over-store trade. The recompute runs its
+products in f32; in bf16 products (``core.fused_ffn.ffn_reference``) the
+gradients of a smoke model differ from the plain version's by a relative
+norm of 1.0-1.5e-2, past the 1e-2 they are held to.
+
 ``LAUNCHES`` counts the launches this wrapper made, so a run can show that
 its main path went through the kernel.
 """
@@ -31,7 +43,7 @@ from typing import Iterator, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ref
 from repro_torch.kernels.fused_dsc import check_tensor
 
 LAUNCHES = 0
@@ -262,3 +274,36 @@ def fused_ffn_cuda(x: torch.Tensor, w_gate: Optional[torch.Tensor],
         raise RuntimeError(f"fused_ffn kernel launch failed: {msg} ({err})")
     LAUNCHES += 1
     return out
+
+
+class FusedFFN(torch.autograd.Function):
+    """``fused_ffn_cuda`` with a gradient through the plain version."""
+
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up, w_down, act):
+        ctx.act = act
+        ctx.save_for_backward(x, w_gate, w_up, w_down)
+        return fused_ffn_cuda(x, w_gate, w_up, w_down, act=act)
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        def plain(x, w_gate, w_up, w_down):
+            return ref.fused_ffn_ref(x, w_gate, w_up, w_down, act=ctx.act)
+        return ref.plain_grads(plain, ctx.saved_tensors,
+                               ctx.needs_input_grad[:4], grad_y) + (None,)
+
+
+def fused_ffn(x: torch.Tensor, w_gate: Optional[torch.Tensor],
+              w_up: torch.Tensor, w_down: torch.Tensor, *,
+              act: str = "silu") -> torch.Tensor:
+    """``fused_ffn_cuda``'s launch, differentiable in x and the weights:
+    through ``FusedFFN`` when grad is on and an input requires it, else the
+    launch alone (serving)."""
+    if _needs_grad(x, w_gate, w_up, w_down):
+        return FusedFFN.apply(x, w_gate, w_up, w_down, act)
+    return fused_ffn_cuda(x, w_gate, w_up, w_down, act=act)
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)

@@ -3,7 +3,11 @@ attention.
 
 A CUDA tensor goes to the hand-written kernel, which launches or raises; a
 CPU tensor goes to the kernel's plain PyTorch version. Model code calls
-these wrappers, never the kernels directly.
+these wrappers, never the kernels directly. The flash and FFN launches are
+differentiable: under grad the kernel still runs the forward, and the
+backward goes through the plain version (``fused_ffn.FusedFFN``,
+``flash_attention.FlashAttention``). The DSC kernel is int8 inference and
+has no gradient.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ def ffn(x: torch.Tensor, w_gate: Optional[torch.Tensor], w_up: torch.Tensor,
     """Fused gated (or, with ``w_gate`` None, ungated) FFN on a (T, d)
     token tile."""
     if x.device.type == "cuda":
-        return _ffn.fused_ffn_cuda(x, w_gate, w_up, w_down, act=act)
+        return _ffn.fused_ffn(x, w_gate, w_up, w_down, act=act)
     if x.device.type == "cpu":
         return ref.fused_ffn_ref(x, w_gate, w_up, w_down, act=act)
     raise ValueError(f"ffn: unsupported device {x.device}")
@@ -53,8 +57,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kw = dict(causal=causal, window=window, softcap=softcap,
               sm_scale=sm_scale)
     if q.device.type == "cuda":
-        return _fa.flash_attention_cuda(q[:, :, None], k[:, :, None],
-                                        v[:, :, None], **kw)[:, :, 0]
+        return _fa.flash_attention(q[:, :, None], k[:, :, None],
+                                   v[:, :, None], **kw)[:, :, 0]
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, **kw)
     raise ValueError(f"attention: unsupported device {q.device}")
@@ -75,8 +79,8 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kw = dict(causal=causal, window=window, softcap=softcap,
               sm_scale=sm_scale)
     if q.device.type == "cuda":
-        return _fa.flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                        v.contiguous(), **kw)
+        return _fa.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), **kw)
     if q.device.type == "cpu":
         return ref.mha_ref(q, k, v, **kw)
     raise ValueError(f"mha: unsupported device {q.device}")

@@ -3,11 +3,14 @@
 Each function is the semantic ground truth its kernel is held against: the
 CPU tests compare it with the JAX package, and ``chip_smoke.py`` compares
 the CUDA kernel with it on the card. It runs on any device.
+``plain_grads`` is the flash and FFN kernels' backward: the gradient of
+their plain version (``mha_ref``, ``fused_ffn_ref``) recomputed under
+grad.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -134,3 +137,19 @@ def mha_ref(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     o = attention_ref(qf, kf, vf, causal=causal, window=window,
                       softcap=softcap, sm_scale=sm_scale)
     return o.reshape(b, h, tq, d).transpose(1, 2)
+
+
+def plain_grads(fn: Callable, inputs: Sequence[Optional[torch.Tensor]],
+                needs: Sequence[bool], grad_out: torch.Tensor
+                ) -> Tuple[Optional[torch.Tensor], ...]:
+    """A kernel's backward: ``fn(*inputs)`` recomputed under grad, and its
+    vector-Jacobian product with ``grad_out`` for each input that ``needs``
+    it (None for the others, and for None inputs)."""
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_(bool(need))
+                  for t, need in zip(inputs, needs)]
+        out = fn(*leaves)
+        wanted = [t for t in leaves if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad_out))
+    return tuple(next(grads) if t is not None and t.requires_grad else None
+                 for t in leaves)

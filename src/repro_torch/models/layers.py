@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import fused_ffn as ffnlib
 from repro_torch.kernels import ops as kops
 
 Params = Dict[str, Any]
@@ -284,13 +285,16 @@ def _attend(q, k, v, positions, cfg: ArchConfig, *, local: bool):
 
 
 def attention_layer(x, p, cfg: ArchConfig, *, local: bool,
-                    positions=None) -> torch.Tensor:
-    """Full-sequence attention (prefill without cache)."""
+                    positions=None, remat: str = "none") -> torch.Tensor:
+    """Full-sequence attention (prefill without cache). ``remat``: the
+    unit's remat mode; under ``zero_buffer`` the attention core (scores,
+    softmax, PV) is recomputed in the backward pass, not stored."""
     b, t, _ = x.shape
     if positions is None:
         positions = torch.arange(t, device=x.device)[None].repeat(b, 1)
     q, k, v = _project_qkv(x, p, cfg, positions)
-    o = _attend(q, k, v, positions, cfg, local=local)
+    o = ffnlib.remat_core(_attend, remat)(q, k, v, positions, cfg,
+                                          local=local)
     return torch.einsum("bthk,hkd->btd", o, p["wo"].to(x.dtype))
 
 

@@ -20,8 +20,11 @@ channel-mix weights in ``sub1`` and has ``sub2 = {}``, as in the reference.
 Entry points:
 
     init_params(cfg, seed, device, dtype)      -> params
+    abstract_params(cfg, dtype)                -> params on the meta device
     params_from_numpy(tree, cfg, device, dtype) -> params
     forward(params, cfg, tokens, patches, frames) -> logits (B, T, V)
+    forward_aux(params, cfg, tokens, patches, frames) -> (logits, aux)
+    loss_fn(params, cfg, batch)                -> (loss, metrics)
     prefill(params, cfg, tokens, patches, frames, max_len) -> (last logits,
                                                                cache)
     decode_step(params, cfg, cache, token, pos) -> (logits, cache)
@@ -36,9 +39,13 @@ cache is the one passed in (decode) or just allocated (prefill). Its leaves
 keep the reference's dtypes: the KV caches, RG-LRU's conv window and RWKV's
 last tokens in the cache dtype, RG-LRU's ``h`` and RWKV's ``S`` in f32.
 
-The reference's ``forward`` also returns the MoE layers' summed aux loss,
-which only training reads; ``moe.moe_layer`` returns it, and ``forward``
-here returns the logits alone until the training slice.
+The reference's ``forward`` returns (logits, aux), aux the MoE layers'
+summed load-balance loss, which only training reads. Here ``forward_aux``
+returns that pair for training, and ``forward``, which serving calls, the
+logits alone, with no remat. In ``forward_aux`` under grad, ``cfg.remat``
+applies per pattern unit as in the reference
+(``core/fused_ffn.apply_remat``): ``full`` recomputes each unit in the
+backward pass, ``zero_buffer`` only its FFN and attention cores.
 """
 
 from __future__ import annotations
@@ -48,8 +55,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import fused_ffn as ffnlib
 from repro_torch.models import layers as L
@@ -123,15 +131,18 @@ def _norm(x, s, cfg):
 
 
 def _sub2(h, p, kind: str, cfg: ArchConfig, cache=None):
-    """The second half's block on the normed h: (y, cache). rwkv's
-    channel-mix carries its last token in the cache; MoE's aux loss is
-    dropped here (see the module docstring)."""
+    """The second half's block on the normed h: (y, aux, cache). rwkv's
+    channel-mix carries its last token in the cache; aux is an MoE layer's
+    load-balance loss and None for every other block."""
     if kind == "rwkv":
-        return rwkv.channel_mix(h, p["sub1"], cfg, cache)
+        y, cache = rwkv.channel_mix(h, p["sub1"], cfg, cache)
+        return y, None, cache
     if cfg.moe is not None:
-        return moe_mod.moe_layer(h, p["sub2"], cfg)[0], cache
+        y, aux = moe_mod.moe_layer(h, p["sub2"], cfg)
+        return y, aux, cache
     return ffnlib.ffn_apply(h, p["sub2"], gated=cfg.gated, act_name=cfg.act,
-                            impl=cfg.block_impl, chunk=cfg.ffn_chunk), cache
+                            impl=cfg.block_impl, chunk=cfg.ffn_chunk), None, \
+        cache
 
 
 def _residual(x, y, p, post: str, cfg: ArchConfig):
@@ -140,22 +151,33 @@ def _residual(x, y, p, post: str, cfg: ArchConfig):
     return x + y
 
 
-def _second_half(x, p, kind, cfg: ArchConfig, cache=None):
-    y, cache = _sub2(_norm(x, p["norm2"], cfg), p, kind, cfg, cache)
-    return _residual(x, y, p, "post_norm2", cfg), cache
+def _second_half(x, p, kind, cfg: ArchConfig, cache=None, remat="none"):
+    """(x, aux, cache) after the second residual pair; under ``zero_buffer``
+    its block is recomputed in the backward pass."""
+    y, aux, cache = ffnlib.remat_core(_sub2, remat)(
+        _norm(x, p["norm2"], cfg), p, kind, cfg, cache)
+    return _residual(x, y, p, "post_norm2", cfg), aux, cache
 
 
-def layer_apply(x, p: Params, kind: str, cfg: ArchConfig):
-    """Full-sequence layer."""
+def _add_aux(aux, more):
+    return aux if more is None else (more if aux is None else aux + more)
+
+
+def layer_apply(x, p: Params, kind: str, cfg: ArchConfig, aux=None,
+                remat: str = "none"):
+    """Full-sequence layer: (x, aux), aux summed with the layer's MoE
+    load-balance loss (None while no layer had one)."""
     h = _norm(x, p["norm1"], cfg)
     if kind in ATTN_KINDS:
-        y = L.attention_layer(h, p["sub1"], cfg, local=(kind == "attn_local"))
+        y = L.attention_layer(h, p["sub1"], cfg, local=(kind == "attn_local"),
+                              remat=remat)
     elif kind == "recurrent":
         y = rg.rglru_block(h, p["sub1"], cfg)
     else:
         y, _ = rwkv.time_mix(h, p["sub1"], cfg)
-    return _second_half(_residual(x, y, p, "post_norm1", cfg), p, kind,
-                        cfg)[0]
+    x, aux2, _ = _second_half(_residual(x, y, p, "post_norm1", cfg), p, kind,
+                              cfg, remat=remat)
+    return x, _add_aux(aux, aux2)
 
 
 def init_layer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
@@ -183,8 +205,9 @@ def layer_prefill(x, p, kind, cfg, cache):
         y, cache = rg.rglru_prefill(h, p["sub1"], cfg, cache)
     else:
         y, cache = rwkv.time_mix(h, p["sub1"], cfg, cache)
-    return _second_half(_residual(x, y, p, "post_norm1", cfg), p, kind, cfg,
-                        cache)
+    x, _, cache = _second_half(_residual(x, y, p, "post_norm1", cfg), p, kind,
+                               cfg, cache)
+    return x, cache
 
 
 def layer_decode(x, p, kind, cfg, cache, pos: int):
@@ -197,8 +220,9 @@ def layer_decode(x, p, kind, cfg, cache, pos: int):
         y, cache = rg.rglru_decode(h, p["sub1"], cfg, cache)
     else:
         y, cache = rwkv.time_mix(h, p["sub1"], cfg, cache)
-    return _second_half(_residual(x, y, p, "post_norm1", cfg), p, kind, cfg,
-                        cache)
+    x, _, cache = _second_half(_residual(x, y, p, "post_norm1", cfg), p, kind,
+                               cfg, cache)
+    return x, cache
 
 
 # ---------------------------------------------------------------------------
@@ -244,9 +268,20 @@ def init_params(cfg: ArchConfig, seed: int = 0, device="cuda",
     ``layers.F32_LEAVES`` in f32."""
     _check_supported(cfg)
     dev = resolve_device(device)
-    dt = getattr(torch, cfg.dtype) if dtype is None else dtype
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    return _init(cfg, gen, dev, dtype)
+
+
+def abstract_params(cfg: ArchConfig, dtype=torch.float32) -> Params:
+    """The parameter tree's shapes and dtypes as tensors on the meta device
+    (no storage): a template to restore a checkpoint into."""
+    _check_supported(cfg)
+    return _init(cfg, torch.Generator(), torch.device("meta"), dtype)
+
+
+def _init(cfg: ArchConfig, gen, dev, dtype) -> Params:
+    dt = getattr(torch, cfg.dtype) if dtype is None else dtype
     vp, d = cfg.vocab_padded(), cfg.d_model
     p: Params = {}
     if cfg.frontend != "audio":   # audio: precomputed frames, no embedding
@@ -284,6 +319,19 @@ def params_from_numpy(tree, cfg: ArchConfig, device="cuda",
     return carry(tree)
 
 
+def _unbind_units(params: Params, cfg: ArchConfig):
+    """Each pattern unit's layer tree, its leaves views of the stacked ones
+    by one ``torch.unbind`` per leaf: the backward pass then stacks each
+    leaf's gradient once, where a view per unit and layer would add a
+    zero-filled stack-sized gradient per unit."""
+    if cfg.n_units == 0:
+        return []
+    stacked = tree.leaves(params["units"])
+    pieces = [torch.unbind(leaf) for leaf in stacked]
+    return [tree.unflatten(params["units"], [p[u] for p in pieces])
+            for u in range(cfg.n_units)]
+
+
 def _unit_layer(params: Params, u: int, i: int) -> Params:
     """Views of layer ``i`` of pattern unit ``u`` in the stacked tree."""
     def take(node):
@@ -294,7 +342,8 @@ def _unit_layer(params: Params, u: int, i: int) -> Params:
 
 
 def _layers(params: Params, cfg: ArchConfig):
-    """(layer params, kind, cache key) in execution order."""
+    """(layer params, kind, cache key) in execution order: serving's walk
+    (a view per unit and layer; training's is ``_unbind_units``)."""
     for u in range(cfg.n_units):
         for i, kind in enumerate(cfg.pattern):
             yield _unit_layer(params, u, i), kind, ("units", u, str(i))
@@ -339,14 +388,69 @@ def _tokens(tokens, device):
     return torch.as_tensor(tokens, dtype=torch.long, device=device)
 
 
+def _run_layers(x, params, cfg: ArchConfig):
+    """(x, aux) after every layer: the pattern units, each under
+    ``cfg.remat`` while grad is on, then the tail, which the reference
+    runs without remat. aux is the MoE layers' summed load-balance loss."""
+    mode = cfg.remat if torch.is_grad_enabled() else "none"
+
+    def unit(x, aux, unit_p):
+        for i, kind in enumerate(cfg.pattern):
+            x, aux = layer_apply(x, unit_p[str(i)], kind, cfg, aux, mode)
+        return x, aux
+
+    run_unit = ffnlib.apply_remat(unit, mode)
+    aux = None
+    for unit_p in _unbind_units(params, cfg):
+        x, aux = run_unit(x, aux, unit_p)
+    for i, kind in enumerate(cfg.tail_kinds):
+        x, aux = layer_apply(x, params["tail"][str(i)], kind, cfg, aux)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
+
+
+def forward_aux(params, cfg: ArchConfig, tokens=None, patches=None,
+                frames=None):
+    """Full-sequence forward: (logits (B, T, Vp) in f32, T counting the
+    vision prefix; aux, the MoE layers' summed load-balance loss, an f32
+    scalar, 0 without MoE): the reference's ``forward``."""
+    x = _embed(params, cfg, tokens, patches, frames)
+    x, aux = _run_layers(x, params, cfg)
+    return _head(params, cfg, x), aux
+
+
 def forward(params, cfg: ArchConfig, tokens=None, patches=None,
             frames=None):
     """Full-sequence forward: logits (B, T, Vp) in f32 (T counts the vision
-    prefix)."""
+    prefix). Serving's forward: no remat, the MoE aux loss dropped;
+    training goes through ``forward_aux``."""
     x = _embed(params, cfg, tokens, patches, frames)
     for p, kind, _ in _layers(params, cfg):
-        x = layer_apply(x, p, kind, cfg)
+        x = layer_apply(x, p, kind, cfg)[0]
     return _head(params, cfg, x)
+
+
+def loss_fn(params, cfg: ArchConfig, batch: Mapping):
+    """Next-token (causal) or per-frame (encoder) cross entropy plus the
+    MoE aux loss: (loss, {"loss", "nll", "aux"}), f32 scalars. ``batch``
+    holds numpy arrays or tensors: ``labels`` (B, T) and ``tokens``,
+    ``patches`` or ``frames`` as ``forward`` takes them. Vision logits are
+    cut to the text positions, and the padded vocab is masked out of the
+    softmax with -1e30, as in the reference."""
+    logits, aux = forward_aux(params, cfg, tokens=batch.get("tokens"),
+                              patches=batch.get("patches"),
+                              frames=batch.get("frames"))
+    labels = _tokens(batch["labels"], logits.device)
+    if cfg.frontend == "vision" and batch.get("patches") is not None:
+        logits = logits[:, batch["patches"].shape[1]:]   # text positions
+    vp = logits.shape[-1]
+    if vp != cfg.vocab:
+        pad = torch.arange(vp, device=logits.device) >= cfg.vocab
+        logits = logits.masked_fill(pad, -1e30)
+    nll = F.cross_entropy(logits.reshape(-1, vp), labels.reshape(-1))
+    loss = nll + aux
+    return loss, {"loss": loss, "nll": nll, "aux": aux}
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,

@@ -5,8 +5,10 @@ equals the JAX oracle and the JAX Pallas kernel (interpret mode) exactly on
 the shape matrix of tests/test_kernels.py; ``ops.dsc_block`` takes the plain
 version for CPU tensors without counting a launch; the build refuses to run
 without nvcc. On a card (``-m gpu``): the CUDA kernel equals the plain
-version exactly. The module imports the JAX reference only inside the tests
-that use it, and the card test builds its blocks with the port's own
+version exactly, and gradients through the flash and fused-FFN kernels
+(their backward goes through the plain versions) equal the plain versions'
+own, alone and in a smoke model. The module imports the JAX reference only
+inside the tests that use it, and the card test builds its blocks with the port's own
 quantizer, so the card test runs without JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
@@ -331,3 +333,90 @@ def test_cfu_fast_path_cuda_matches_cpu():
         assert got.device.type == "cuda" and got.dtype == torch.int8
         want = fastpath.run_fast(prog, x_q, params, device="cpu")
         assert torch.equal(got.cpu(), want), sched
+
+
+# --- gradients through the flash and FFN kernels -----------------------------
+
+
+def _grad_close(got, want, tol):
+    """A gradient through a kernel against the plain version's: present,
+    zero only where the plain one is, and within ``_close``'s bounds."""
+    assert got is not None and bool((got != 0).any()) == bool(
+        (want != 0).any())
+    _close(got, want, tol)
+
+
+@pytest.mark.gpu
+def test_ffn_and_mha_gradients_on_the_card_match_plain():
+    """Under grad on CUDA tensors ``ops.ffn`` and ``ops.mha`` launch the
+    kernels, return outputs with a ``grad_fn``, and give the plain
+    versions' gradients."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the fused-FFN and flash-attention "
+                    "kernels have no CPU mode")
+    from repro_torch.kernels import flash_attention, fused_ffn
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        x, wg, wu, wd = (
+            (torch.randn(s, generator=gen, device="cuda") * s[0] ** -0.5)
+            .to(dtype).requires_grad_()
+            for s in ((77, 256), (256, 512), (256, 512), (512, 256)))
+        before = fused_ffn.LAUNCHES
+        y = ops.ffn(x, wg, wu, wd, act="silu")
+        assert y.grad_fn is not None and fused_ffn.LAUNCHES == before + 1
+        gy = torch.randn(y.shape, generator=gen, device="cuda").to(dtype)
+        got = torch.autograd.grad(y, (x, wg, wu, wd), gy)
+        want = torch.autograd.grad(
+            ref.fused_ffn_ref(x, wg, wu, wd, act="silu"), (x, wg, wu, wd), gy)
+        for g, w in zip(got, want):
+            _grad_close(g, w, tol)
+        q = torch.randn((2, 96, 4, 64), generator=gen, device="cuda").to(
+            dtype).requires_grad_()
+        k, v = (torch.randn((2, 96, 2, 64), generator=gen, device="cuda")
+                .to(dtype).requires_grad_() for _ in range(2))
+        before = flash_attention.LAUNCHES
+        o = ops.mha(q, k, v, n_kv_heads=2, window=48, softcap=50.0)
+        assert (o.grad_fn is not None
+                and flash_attention.LAUNCHES == before + 1)
+        go = torch.randn(o.shape, generator=gen, device="cuda").to(dtype)
+        got = torch.autograd.grad(o, (q, k, v), go)
+        want = torch.autograd.grad(
+            ref.mha_ref(q, k, v, window=48, softcap=50.0), (q, k, v), go)
+        for g, w in zip(got, want):
+            _grad_close(g, w, tol)
+
+
+@pytest.mark.gpu
+def test_model_gradients_through_the_kernels_on_the_card():
+    """The gemma2 smoke model's loss gradient through the flash and FFN
+    kernels equals the plain disciplines' (f32, 2e-5)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the fused-FFN and flash-attention "
+                    "kernels have no CPU mode")
+    import dataclasses
+    from repro_torch import tree
+    from repro_torch.kernels import flash_attention, fused_ffn
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    base = dataclasses.replace(registry.get_smoke("gemma2-9b"),
+                               dtype="float32")
+    params = lm.init_params(base, 0, "cuda", torch.float32)
+    for p in tree.leaves(params):
+        p.requires_grad_(True)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, base.vocab, (2, 64)),
+             "labels": rng.integers(0, base.vocab, (2, 64))}
+    grads = {}
+    for impls in (("kernel", "fused"), ("reference", "reference")):
+        cfg = dataclasses.replace(base, attn_impl=impls[0],
+                                  block_impl=impls[1])
+        before = (flash_attention.LAUNCHES, fused_ffn.LAUNCHES)
+        loss, _ = lm.loss_fn(params, cfg, batch)
+        grads[impls] = torch.autograd.grad(loss, tree.leaves(params))
+        if impls[0] == "kernel":
+            # forward + the full remat's recompute, one each per layer
+            n = 2 * base.n_layers
+            assert (flash_attention.LAUNCHES, fused_ffn.LAUNCHES) == (
+                before[0] + n, before[1] + n)
+    for g, w in zip(*grads.values()):
+        _grad_close(g, w, 2e-5)

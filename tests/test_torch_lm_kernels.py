@@ -326,3 +326,113 @@ def test_apply_rope_matches_jax(fraction):
     jrot, jinv = jL.rope_freqs(32, fraction, 10_000.0)
     assert rot == jrot
     np.testing.assert_array_equal(inv.numpy(), np.asarray(jinv))
+
+
+# --- gradients through the kernel launches --------------------------------------
+
+
+def _stub(monkeypatch, module, name, plain):
+    """Replace a CUDA launch with its plain forward on the CPU, counting
+    as the launcher does, to check the autograd wiring around it."""
+    def launch(*args, **kw):
+        module.LAUNCHES += 1
+        assert not torch.is_grad_enabled()     # inside Function.forward
+        return plain(*args, **kw)
+    monkeypatch.setattr(module, name, launch)
+
+
+def _counting(monkeypatch, module, fn_name):
+    calls = []
+    plain = getattr(module, fn_name)
+
+    def counted(*args, **kw):
+        calls.append(torch.is_grad_enabled())
+        return plain(*args, **kw)
+    monkeypatch.setattr(module, fn_name, counted)
+    return plain, calls
+
+
+@pytest.mark.parametrize("gated", [True, False])
+def test_ffn_launch_is_an_autograd_function_through_the_plain_version(
+        monkeypatch, gated):
+    """The forward launches (a stub here) and saves inputs; the backward
+    runs the plain version under grad, launches nothing, and returns its
+    gradients."""
+    plain, calls = _counting(monkeypatch, ref, "fused_ffn_ref")
+    _stub(monkeypatch, tff, "fused_ffn_cuda", plain)
+    rng = np.random.default_rng(4)
+    x, wg, wu = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                 .requires_grad_() for s in ((6, 32), (32, 48), (32, 48)))
+    wd = torch.from_numpy(rng.standard_normal((48, 32)).astype(np.float32)
+                          ).requires_grad_()
+    wg = wg if gated else None
+    args = [t for t in (x, wg, wu, wd) if t is not None]
+    before = tff.LAUNCHES
+    y = tff.fused_ffn(x, wg, wu, wd, act="gelu")
+    assert type(y.grad_fn).__name__ == "FusedFFNBackward"
+    assert tff.LAUNCHES == before + 1 and calls == []
+    gy = torch.from_numpy(rng.standard_normal((6, 32)).astype(np.float32))
+    got = torch.autograd.grad(y, args, gy)
+    assert calls == [True]          # backward: the plain version, under grad
+    assert tff.LAUNCHES == before + 1           # and no launch
+    want = torch.autograd.grad(plain(x, wg, wu, wd, act="gelu"), args, gy)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # an input that needs no gradient gets none
+    (gx,) = torch.autograd.grad(
+        tff.fused_ffn(x, wg, wu.detach(), wd.detach(), act="gelu"), [x], gy)
+    assert torch.equal(gx, want[0])
+
+
+def test_flash_launch_is_an_autograd_function_through_the_plain_version(
+        monkeypatch):
+    plain, calls = _counting(monkeypatch, ref, "mha_ref")
+    _stub(monkeypatch, tfa, "flash_attention_cuda", plain)
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((2, 24, 4, 32)).astype(
+        np.float32)).requires_grad_()
+    k, v = (torch.from_numpy(rng.standard_normal((2, 24, 2, 32)).astype(
+        np.float32)).requires_grad_() for _ in range(2))
+    kw = dict(causal=True, window=8, softcap=30.0, sm_scale=0.2)
+    before = tfa.LAUNCHES
+    o = tfa.flash_attention(q, k, v, **kw)
+    assert type(o.grad_fn).__name__ == "FlashAttentionBackward"
+    assert tfa.LAUNCHES == before + 1 and calls == []
+    go = torch.from_numpy(rng.standard_normal(o.shape).astype(np.float32))
+    got = torch.autograd.grad(o, (q, k, v), go)
+    assert calls == [True] and tfa.LAUNCHES == before + 1
+    want = torch.autograd.grad(plain(q, k, v, **kw), (q, k, v), go)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("which", ["ffn", "flash"])
+def test_launch_without_grad_skips_the_autograd_function(monkeypatch, which):
+    """Serving (no grad, or no input that requires it) launches the kernel
+    alone: one launch, an output with no ``grad_fn``, equal to the launch
+    through the Function."""
+    rng = np.random.default_rng(6)
+    if which == "ffn":
+        module, name, plain = tff, "fused_ffn_cuda", ref.fused_ffn_ref
+        shapes = ((6, 32), (32, 48), (32, 48), (48, 32))
+        call = lambda *a: tff.fused_ffn(*a, act="gelu")
+    else:
+        module, name, plain = tfa, "flash_attention_cuda", ref.mha_ref
+        shapes = ((2, 24, 4, 32), (2, 24, 2, 32), (2, 24, 2, 32))
+        call = lambda *a: tfa.flash_attention(*a, causal=True)
+    def launch(*a, **kw):
+        module.LAUNCHES += 1
+        with torch.no_grad():
+            return plain(*a, **kw)
+    monkeypatch.setattr(module, name, launch)
+    args = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in shapes]
+    before = module.LAUNCHES
+    served = call(*args)
+    assert served.grad_fn is None and module.LAUNCHES == before + 1
+    with torch.no_grad():
+        off = call(*(a.requires_grad_() for a in args))
+    assert off.grad_fn is None and module.LAUNCHES == before + 2
+    trained = call(*args)
+    assert trained.grad_fn is not None and module.LAUNCHES == before + 3
+    assert torch.equal(served, off) and torch.equal(served, trained.detach())
