@@ -13,9 +13,11 @@ the fast path and the network on the card, the rest of the dense LM
 family (qwen3-14b, glm4-9b, qwen2-72b at reduced depth and internvl2-1b
 served, hubert-xlarge's forward) and the MoE, RG-LRU and RWKV6 families
 (qwen2-moe-a2.7b, llama4-scout-17b-a16e at reduced depth, recurrentgemma-9b,
-rwkv6-3b served) through the same two kernels, and training: gradients
+rwkv6-3b served) through the same two kernels, training: gradients
 through both kernels and internvl2-1b trained at full width through
-``launch.train`` with a restart from its checkpoint. Phases:
+``launch.train`` with a restart from its checkpoint, and the multi-device
+runtime (DTensor serve and train steps on a one-card mesh) with the dry
+run of four full-size cells. Phases:
 
 1. the card's name and power limit (nvidia-smi); no CUDA device -> fail;
 2. build every kernel from src/repro_torch/kernels/csrc (one nvcc each, all
@@ -185,7 +187,22 @@ through both kernels and internvl2-1b trained at full width through
    per step, tokens/s, the device busy and idle share of a profiled step,
    peak device memory of a step, launches per step; then the FFN and flash
    kernels' forward (CUDA-graph replays) against their backward through
-   the plain versions (CUDA events) at the step's shapes.
+   the plain versions (CUDA events) at the step's shapes;
+31. the multi-device runtime on this card: gemma2-9b at full width and depth
+   through ``steps.build_prefill_step`` and ``build_decode_step`` on an NCCL
+   (1, 1) mesh (params, batch and cache DTensors), B 4, P 512, 16 tokens:
+   greedy tokens equal to the eager path's, one flash per layer per prefill
+   and one FFN per layer per prefill and decode step, every launch inside
+   ``local_map``; prefill and decode-step host ms beside the eager path's;
+32. internvl2-1b at full width, B 4 x (256 + 512), 2 steps of the mesh
+   train step on the (1, 1) mesh against the meshless step: losses within
+   1e-5 relative (bit-equal reported), 24 + 24 flash and FFN launches a
+   step inside ``local_map``;
+33. the dry run (``launch.dryrun.run_cell``) of four full-size cells under
+   the fake process group on fake ``cuda`` tensors: qwen2-72b train_4k on
+   (16, 16), llama4-scout decode_32k on (2, 16, 16), gemma2-9b prefill_32k
+   and rwkv6-3b long_500k on (16, 16), each ``ok`` with its per-device
+   bytes, FLOPs over model FLOPs and the bound on the H100's rates.
 
 The last stdout line is {"ok": true, "device": {...}}; the line before it is
 the {"kernels": [...]} record, whose DSC rows also carry the kernel's
@@ -231,11 +248,14 @@ from repro_torch.data import SyntheticLMData  # noqa: E402
 from repro_torch.kernels import (build, flash_attention, fused_dsc,  # noqa: E402
                                  fused_ffn, ops, ref)
 from repro_torch.launch import cfu as cfu_cli  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import mobilenetv2 as mnv2  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from repro_torch.runtime import actctx  # noqa: E402
 from repro_torch.runtime import steps as steps_mod  # noqa: E402
 
 # H100 SXM published dense peaks (NVIDIA data sheet), at a 700 W limit.
@@ -2656,6 +2676,237 @@ def phase_train_remat(device):
     return {mode: row[4] for mode, row in rows.items()}
 
 
+# --- phases 31-33: the multi-device runtime and the dry run ----------------
+
+DIST_DRYRUN_CELLS = (("qwen2-72b", "train_4k", "single"),
+                     ("llama4-scout-17b-a16e", "decode_32k", "multi"),
+                     ("gemma2-9b", "prefill_32k", "single"),
+                     ("rwkv6-3b", "long_500k", "single"))
+DIST_TRAIN_STEPS = 2
+DIST_REPS = 10
+
+
+@contextlib.contextmanager
+def one_card_mesh():
+    """An NCCL process group of one rank over this card and its (1, 1)
+    ("data", "model") mesh; destroyed on exit."""
+    init = Path(__file__).resolve().parent / "build" / f"pg-{os.getpid()}"
+    init.parent.mkdir(parents=True, exist_ok=True)
+    init.unlink(missing_ok=True)
+    with mesh_lib.process_group("nccl", 1, 0, str(init)):
+        yield mesh_lib.make_host_mesh(model=1, device_type="cuda")
+    init.unlink(missing_ok=True)
+
+
+class ThroughLocalMap:
+    """Within the block, counts the kernel launches made inside
+    ``local_map`` (the sharded model's local regions) apart from all."""
+
+    def __enter__(self):
+        self.saved, self.inside = actctx.local_map, [0, 0]
+
+        def counted(fn, *a, **kw):
+            def run(*args, **kwargs):
+                before = lm_counts()
+                try:   # a remat's recompute may stop early by raising
+                    return fn(*args, **kwargs)
+                finally:
+                    after = lm_counts()
+                    self.inside[0] += after[0] - before[0]
+                    self.inside[1] += after[1] - before[1]
+            return self.saved(run, *a, **kw)
+
+        actctx.local_map = counted
+        return self
+
+    def __exit__(self, *exc):
+        actctx.local_map = self.saved
+
+
+def sync_ms(fn, reps=DIST_REPS):
+    """Median host-clock ms of ``fn()`` to a synchronized card, after one
+    warm call."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
+def phase_sharded_serve(device):
+    """Phase 31: gemma2-9b at full width and depth through
+    ``build_prefill_step`` and ``build_decode_step`` on the one-card (1, 1)
+    mesh: greedy tokens equal to the eager path's (``launch.serve``'s
+    ``lm.prefill`` / ``lm.decode_step``), one flash per layer per prefill
+    and one FFN per layer per prefill and decode step, every launch inside
+    ``local_map``; prefill and decode-step host ms beside the eager
+    path's."""
+    cfg = gemma(attn_impl="kernel", block_impl="fused")
+    n = cfg.n_layers
+    cell = InputShape("serve", LM_PROMPT + LM_GEN, LM_BATCH, "prefill")
+    params = lm.init_params(cfg, 0, device)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT))).to(device)
+    max_len = LM_PROMPT + LM_GEN
+
+    def eager_run():
+        logits, cache = lm.prefill(params, cfg, prompts, max_len=max_len)
+        toks = [greedy(logits, cfg)]
+        for i in range(LM_GEN - 1):
+            logits, cache = lm.decode_step(params, cfg, cache, toks[-1],
+                                           LM_PROMPT + i)
+            toks.append(greedy(logits, cfg))
+        return torch.stack(toks, 1), cache
+
+    with torch.no_grad():
+        want, eager_cache = eager_run()
+    with one_card_mesh() as mesh:
+        sp = steps_mod.shard_params(params, mesh)
+        pre = steps_mod.build_prefill_step(cfg, mesh, cell)
+        dec = steps_mod.build_decode_step(cfg, mesh, cell)
+        reset_lm_counts()
+        with ThroughLocalMap() as through:
+            logits, cache = pre(sp, {"tokens": prompts})
+            torch.cuda.synchronize()
+            pre_counts, pre_inside = lm_counts(), tuple(through.inside)
+            toks = [greedy(logits.full_tensor(), cfg)]
+            reset_lm_counts()
+            through.inside[:] = [0, 0]
+            for i in range(LM_GEN - 1):
+                logits, cache = dec(sp, cache, toks[-1], LM_PROMPT + i)
+                toks.append(greedy(logits.full_tensor(), cfg))
+            torch.cuda.synchronize()
+            dec_counts, dec_inside = lm_counts(), tuple(through.inside)
+        got = torch.stack(toks, 1)
+        check(torch.equal(got, want),
+              "sharded serve tokens != the eager path's")
+        check(pre_counts == (n, n) and pre_inside == pre_counts,
+              f"sharded prefill launched (flash, ffn) {pre_counts}, "
+              f"{pre_inside} inside local_map; expected ({n}, {n})")
+        steps = LM_GEN - 1
+        check(dec_counts == (0, n * steps) and dec_inside == dec_counts,
+              f"sharded decode launched {dec_counts}, {dec_inside} inside "
+              f"local_map; expected (0, {n * steps})")
+        # host ms, the eager path and the mesh path in one run
+        with torch.no_grad():
+            e_pre = sync_ms(lambda: lm.prefill(params, cfg, prompts,
+                                               max_len=max_len))
+            e_dec = sync_ms(lambda: lm.decode_step(
+                params, cfg, eager_cache, want[:, 0], LM_PROMPT))
+        m_pre = sync_ms(lambda: pre(sp, {"tokens": prompts}))
+        m_dec = sync_ms(lambda: dec(sp, cache, want[:, 0], LM_PROMPT))
+        del sp, cache, logits
+    del params, eager_cache
+    torch.cuda.empty_cache()
+    say(f"[dist-serve] gemma2-9b B{LM_BATCH} P{LM_PROMPT} +{LM_GEN} on the "
+        f"one-card (1, 1) mesh (DTensor, NCCL): greedy tokens == eager "
+        f"path's; launches (flash, ffn) prefill {pre_counts}, {steps} decode "
+        f"steps {dec_counts}, all inside local_map")
+    say(f"[dist-serve] host ms (median of {DIST_REPS}): prefill eager "
+        f"{e_pre:.3f} / mesh {m_pre:.3f} ({m_pre - e_pre:+.3f}); decode "
+        f"step eager {e_dec:.3f} / mesh {m_dec:.3f} ({m_dec - e_dec:+.3f}); "
+        f"{card_line()}")
+    return {"prefill_ms": [e_pre, m_pre], "decode_ms": [e_dec, m_dec]}
+
+
+def phase_sharded_train(device):
+    """Phase 32: internvl2-1b at full width through the mesh train step on
+    the (1, 1) mesh, its state drawn shard by shard
+    (``steps.init_sharded_train_state``), against the meshless step, same
+    seed and batches: the
+    losses within 1e-5 relative (bit-equal expected), 24 + 24 flash and FFN
+    launches a step, all inside ``local_map``."""
+    cfg = dataclasses.replace(registry.get(TRAIN_ARCH), attn_impl="kernel",
+                              block_impl="fused")
+    shape = InputShape("train_cli", TRAIN_SEQ, TRAIN_BATCH, "train")
+    train = steps_mod.TrainSpec(peak_lr=3e-4, warmup_steps=1,
+                                total_steps=DIST_TRAIN_STEPS)
+    data = SyntheticLMData(cfg, shape, seed=0)
+    step = steps_mod.build_train_step(cfg, train, shape, device)
+    state = steps_mod.init_train_state(cfg, 0, train, device)
+    plain = []
+    for i in range(DIST_TRAIN_STEPS):
+        state, m = step(state, data.batch_at(i))
+        plain.append(float(m["loss"]))
+    del state
+    torch.cuda.empty_cache()
+    want = train_launches(cfg)
+    with one_card_mesh() as mesh:
+        mstep = steps_mod.build_train_step(cfg, train, shape, mesh=mesh)
+        # drawn shard by shard, as launch.train does on a mesh
+        state = steps_mod.init_sharded_train_state(cfg, 0, train, mesh)
+        meshed, counts = [], []
+        for i in range(DIST_TRAIN_STEPS):
+            reset_lm_counts()
+            with ThroughLocalMap() as through:
+                t0 = time.perf_counter()
+                state, m = mstep(state, data.batch_at(i))
+                loss = float(m["loss"].full_tensor())
+                ms = (time.perf_counter() - t0) * 1e3
+            counts.append((lm_counts(), tuple(through.inside), ms))
+            meshed.append(loss)
+        del state
+    torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(meshed, plain))
+    check(rel <= 1e-5, f"mesh losses {meshed} vs meshless {plain}")
+    for c, inside, _ in counts:
+        check(c == want and inside == c,
+              f"mesh train step launched {c}, {inside} inside local_map; "
+              f"expected {want}")
+    say(f"[dist-train] {TRAIN_ARCH} B{TRAIN_BATCH} x ({cfg.n_patches} + "
+        f"{TRAIN_SEQ}) on the (1, 1) mesh: losses {meshed} vs meshless "
+        f"{plain}: {'bit-equal' if rel == 0.0 else f'max relative {rel:.3e}'}"
+        f"; launches (flash, ffn) per step {counts[0][0]}, all inside "
+        f"local_map; host ms per step {[round(c[2], 3) for c in counts]}")
+    return rel
+
+
+def phase_dryrun():
+    """Phase 33: four full-size cells of the dry run, each under the fake
+    process group of its mesh and on fake tensors, so the custom ops' fake
+    impls and flop formulas stand in for the kernels."""
+    out = Path(__file__).resolve().parent / "build" / "dryrun_smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    for arch, shp, mesh_name in DIST_DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shp, mesh_name, out_dir=str(out),
+                              verbose=False)
+        check(rec["status"] == "ok",
+              f"dry run {arch}/{shp}/{mesh_name}: {rec.get('error')}")
+        mem = rec["memory"]
+        check(rec["fake_device"] == "cuda" and mem["argument_bytes"] > 0
+              and rec["hlo_flops"] > 0 and rec["fits"],
+              f"dry run {arch}/{shp}: {rec['fake_device']}, "
+              f"{mem['argument_bytes']} argument bytes + "
+              f"~{mem['temp_bytes']} live, fits {rec['fits']}")
+        t_max = max(rec["t_compute"], rec["t_memory"], rec["t_collective"])
+        say(f"[dryrun] {arch}/{shp}/{mesh_name} ({rec['chips']} devices, "
+            f"full depth, fake cuda): per device {mem['argument_bytes']:,} "
+            f"argument bytes + ~{mem['temp_bytes']:,} live (estimate; "
+            f"fits one card {rec['fits']}); "
+            f"{rec['hlo_flops']:.6e} FLOPs, model/counted "
+            f"{rec['useful_flops_frac']:.4f}; bound {rec['bottleneck']} "
+            f"{t_max:.6f} s on {rec['hardware']} (links {rec['links']}); "
+            f"{time.perf_counter() - t0:.2f} s")
+    shutil.rmtree(out, ignore_errors=True)
+
+
+def phases_dist(device):
+    """Phases 31-33, the multi-device runtime on one card and the dry run:
+    their seconds."""
+    t0 = time.perf_counter()
+    phase_sharded_serve(device)
+    phase_sharded_train(device)
+    phase_dryrun()
+    took = time.perf_counter() - t0
+    say(f"[dist] phases 31-33: {took:.2f} s")
+    return took
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2736,6 +2987,7 @@ def main() -> int:
                 "per_step": per_train_step["per_step"][i],
                 "per_step_by_remat": {m: c[i] for m, c in by_remat.items()}}
     say(f"[train] phases 28-30: {time.perf_counter() - t0:.2f} s")
+    phases_dist(device)
     say(card_line())
     say("kernels " + json.dumps(entries))
     say(json.dumps({"kernels": entries}))

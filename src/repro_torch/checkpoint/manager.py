@@ -17,8 +17,16 @@ Guarantees, as in the reference:
   (``tree.flatten_with_path``; a ``TrainState`` gives ``0/...`` params,
   ``1/0/...`` and ``1/1/...`` the moments, ``1/2`` the count, ``2`` the step
   and ``3/...`` the compression residual). Restore takes a template tree
-  (``meta`` tensors will do) and the device to load onto; the reference's
-  target shardings have no counterpart on one device.
+  (``meta`` tensors will do) and the device to load onto.
+* **Elastic** — a tree of DTensors is saved whole, and restore takes
+  target shardings: a spec tree and a mesh (``steps.train_state_shardings``),
+  so a state saved on one mesh restores onto another, each rank keeping
+  its shard (sliced on the host before it moves to the device).
+* **One writer** — in a process group every rank calls ``maybe_save`` (the
+  gather of each DTensor leaf is a collective), and only global rank 0
+  writes, prunes and updates ``LATEST``. ``sync()`` drains the write and
+  holds every rank at a barrier until it is on disk; ``latest()`` and
+  ``restore_latest`` sync first, so all ranks see the same checkpoints.
 
 Layout:  <dir>/step_<n:08d>/{arrays.npz, meta.json} ; <dir>/LATEST (text).
 """
@@ -33,6 +41,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch import tree as tree_lib
 
@@ -40,10 +50,24 @@ Tree = Any
 
 
 def _host_array(leaf) -> np.ndarray:
-    """A leaf as a numpy array that shares no memory with the leaf."""
+    """A leaf as a numpy array that shares no memory with the leaf (a
+    DTensor gathered whole)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.array(leaf, copy=True)
+
+
+def _in_group() -> bool:
+    return (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1)
+
+
+def _writer() -> bool:
+    """Whether this process writes checkpoints: global rank 0 of a process
+    group, or a process outside any."""
+    return not _in_group() or dist.get_rank() == 0
 
 
 def _flatten(tree: Tree) -> Dict[str, np.ndarray]:
@@ -84,10 +108,16 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore_checkpoint(directory: str, template: Tree,
-                       step: Optional[int] = None, device=None) -> Tree:
+                       step: Optional[int] = None, device=None,
+                       shardings: Optional[Tree] = None, mesh=None) -> Tree:
     """Restore into the structure of ``template``, whose tensor leaves give
     each array's shape, dtype, ``requires_grad`` and, unless ``device`` is
-    given, its device (a ``meta`` template needs ``device``)."""
+    given, its device (a ``meta`` template needs ``device``). With
+    ``shardings`` (a spec tree of ``template``'s structure) and ``mesh``,
+    each leaf becomes a DTensor on ``mesh`` placed by its spec, on the
+    mesh's device."""
+    if mesh is not None:
+        device = mesh.device_type
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {directory}")
@@ -100,8 +130,16 @@ def restore_checkpoint(directory: str, template: Tree,
                 raise ValueError(f"shape mismatch for {key}: "
                                  f"{arr.shape} vs {tuple(leaf.shape)}")
             dev = leaf.device if device is None else torch.device(device)
-            t = torch.from_numpy(arr).to(
-                device=dev, dtype=leaf.dtype)
+            t = torch.from_numpy(arr)
+            if shardings is not None:
+                from repro_torch.runtime import sharding as shd
+                spec = shd.spec_at(shardings, key)
+                t = shd.from_local(
+                    shd.local_part(t, spec, mesh).to(device=dev,
+                                                     dtype=leaf.dtype),
+                    spec, mesh, arr.shape)
+            else:
+                t = t.to(device=dev, dtype=leaf.dtype)
             leaves.append(t.requires_grad_(leaf.requires_grad))
     return tree_lib.unflatten(template, leaves)
 
@@ -122,7 +160,12 @@ class CheckpointManager:
         self.wait()
         # Copy to host on the caller thread (device -> host is the sync
         # part, and the copy must precede the next in-place step); the file
-        # write happens in the background.
+        # write happens in the background, on the writer alone.
+        if not _writer():
+            tree_lib.map_leaves(
+                lambda x: x.full_tensor() if isinstance(x, DTensor) else x,
+                tree)
+            return True
         host_tree = tree_lib.map_leaves(_host_array, tree)
 
         def _write():
@@ -144,6 +187,18 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise err
 
+    def sync(self):
+        """Drain this rank's write, then wait at a barrier for every rank:
+        after it, the writer's checkpoints are on disk for all."""
+        self.wait()
+        if _in_group():
+            dist.barrier()
+
+    def latest(self) -> Optional[int]:
+        """The newest complete checkpoint's step, the same on every rank."""
+        self.sync()
+        return latest_step(self.directory)
+
     def _prune(self):
         steps = sorted(
             int(d[5:]) for d in os.listdir(self.directory)
@@ -152,5 +207,8 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.directory, f"step_{s:08d}"),
                           ignore_errors=True)
 
-    def restore_latest(self, template: Tree, device=None):
-        return restore_checkpoint(self.directory, template, device=device)
+    def restore_latest(self, template: Tree, device=None,
+                       shardings: Optional[Tree] = None, mesh=None):
+        self.sync()
+        return restore_checkpoint(self.directory, template, device=device,
+                                  shardings=shardings, mesh=mesh)

@@ -26,9 +26,12 @@ from typing import Callable
 
 import torch
 import torch.utils.checkpoint
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.fused_dsc import on_card
 from repro_torch.kernels.ref import ACTS
+from repro_torch.runtime.actctx import local_call, partial_on, placed, sharded_on
 
 Act = Callable[[torch.Tensor], torch.Tensor]
 
@@ -154,16 +157,20 @@ def ffn_apply(x, params, *, gated: bool, act_name: str, impl: str = "fused",
     ``params``: dict with w_gate/w_up/w_down (gated) or w_up/w_down, cast to
     x's dtype here (a no-op for weights already stored in it). ``fused`` on
     a CUDA tensor launches the fused-FFN kernel on the (tokens, d) rows; on
-    a CPU tensor it runs the chunked plain dataflow.
+    a CPU tensor it runs the chunked plain dataflow. On a mesh (DTensors),
+    ``_ffn_sharded``.
     """
     if impl not in ("reference", "fused"):
         raise ValueError(f"unknown FFN impl {impl!r} (reference | fused)")
+    if isinstance(x, DTensor):
+        return _ffn_sharded(x, params, gated=gated, act_name=act_name,
+                            impl=impl, chunk=chunk)
     act = ACTS[act_name]
     dt = x.dtype
     w_up = params["w_up"].to(dt)
     w_down = params["w_down"].to(dt)
     w_gate = params["w_gate"].to(dt) if gated else None
-    if impl == "fused" and x.device.type == "cuda":
+    if impl == "fused" and on_card(x):
         lead = x.shape[:-1]
         y = kops.ffn(x.reshape(-1, x.shape[-1]).contiguous(), w_gate, w_up,
                      w_down, act=act_name)
@@ -175,3 +182,26 @@ def ffn_apply(x, params, *, gated: bool, act_name: str, impl: str = "fused",
     if impl == "reference":
         return ffn_reference_ungated(x, w_up, w_down, act=act)
     return ffn_fused_ungated(x, w_up, w_down, act=act, chunk=chunk)
+
+
+def _ffn_sharded(x, params, *, gated: bool, act_name: str, impl: str,
+                 chunk: int):
+    """The FFN on a mesh, Megatron-style, as the reference's pins lay it
+    out: each weight cast to x's dtype, then its FSDP dim gathered (the
+    reference pins (D, M) / (M, D) on the bf16 copies, so XLA gathers bf16
+    there); d_ff stays on ``model``. Each rank runs the one-device FFN (on
+    a card the kernel) on its tokens and its d_ff columns, a partial sum
+    over ``model`` that is all-reduced here."""
+    dt = x.dtype
+    lead = (None,) * (x.dim() - 1)
+    x = placed(x, "B", *lead)
+    w = {"w_up": placed(params["w_up"].to(dt), None, "M"),
+         "w_down": placed(params["w_down"].to(dt), "M", None)}
+    if gated:
+        w["w_gate"] = placed(params["w_gate"].to(dt), None, "M")
+    out_pl = (partial_on(x) if sharded_on(w["w_up"]) else list(x.placements),)
+    y = local_call(lambda xl, wl: (ffn_apply(xl, wl, gated=gated,
+                                             act_name=act_name, impl=impl,
+                                             chunk=chunk),),
+                   out_pl, x, w)[0]
+    return placed(y, "B", *lead)

@@ -14,6 +14,12 @@ by TMA. ``plan`` states in Python what one bf16 launch is handed (tiles,
 padded head dim, ring depth, shared memory, grid and block order), so the
 CPU tests can check it.
 
+The launch is the operator ``repro_torch::flash_attention``: its CUDA impl
+is ``flash_attention_cuda``, its CPU impl ``ref.mha_ref``, its fake impl
+shape and dtype only, and its flop formula (``flash_flops``) the kernel's
+products over the pairs the masks leave, which the dry run's cost model
+counts.
+
 ``flash_attention`` is the launch with a gradient (``FlashAttention``): the
 forward launches the kernel and saves only q, k and v, the backward
 recomputes the attention through ``ref.mha_ref`` under grad and returns that
@@ -32,9 +38,10 @@ import dataclasses
 from typing import Iterator, Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.fused_dsc import check_tensor
+from repro_torch.kernels.fused_dsc import check_tensor, on_card
 
 LAUNCHES = 0
 
@@ -104,21 +111,9 @@ def kernel_smem_bytes(d: int) -> int:
     return _lib().flash_attention_bf16_smem_bytes(d)
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True, window: Optional[int] = None,
-                         softcap: Optional[float] = None,
-                         sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Launch the flash-attention kernel on CUDA tensors.
-
-    Args:
-      q: (B, Tq, H, d); k, v: (B, Tk, Hkv, d), H a multiple of Hkv; all
-        contiguous, float32 or bfloat16, d a multiple of 16 and <= 256.
-      causal: query i sees keys j <= i. window: keys with i - j < window
-        (None: all). softcap: s -> softcap * tanh(s / softcap).
-      sm_scale: score scale after the dot (default d ** -0.5).
-    Returns: (B, Tq, H, d) in q's dtype, on q's device and current stream.
-    """
-    global LAUNCHES
+def _check_launch(q, k, v, window, softcap) -> Tuple[int, int, int, int]:
+    """What the launcher refuses before it touches the card (the fake impl
+    refuses the same): (B, Tq, H, d)."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q, k, v must be (B, T, H, d), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}")
@@ -136,10 +131,30 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window must be >= 1 or None, got {window}")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap must be > 0 or None, got {softcap}")
+    check_tensor(q, "q", q.dtype, (b, tq, h, d), q.device)
+    check_tensor(k, "k", q.dtype, (b, tk, hkv, d), q.device)
+    check_tensor(v, "v", q.dtype, (b, tk, hkv, d), q.device)
+    return b, tq, h, d
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: Optional[int] = None,
+                         softcap: Optional[float] = None,
+                         sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Launch the flash-attention kernel on CUDA tensors.
+
+    Args:
+      q: (B, Tq, H, d); k, v: (B, Tk, Hkv, d), H a multiple of Hkv; all
+        contiguous, float32 or bfloat16, d a multiple of 16 and <= 256.
+      causal: query i sees keys j <= i. window: keys with i - j < window
+        (None: all). softcap: s -> softcap * tanh(s / softcap).
+      sm_scale: score scale after the dot (default d ** -0.5).
+    Returns: (B, Tq, H, d) in q's dtype, on q's device and current stream.
+    """
+    global LAUNCHES
+    b, tq, h, d = _check_launch(q, k, v, window, softcap)
+    tk, hkv = k.shape[1], k.shape[2]
     dev = q.device
-    check_tensor(q, "q", q.dtype, (b, tq, h, d), dev)
-    check_tensor(k, "k", q.dtype, (b, tk, hkv, d), dev)
-    check_tensor(v, "v", q.dtype, (b, tk, hkv, d), dev)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {dev}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -161,6 +176,56 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+# The launch as a PyTorch operator (registered as ``fused_ffn.OPS`` says):
+# CUDA impl the kernel, CPU impl the plain version, fake impl shape and
+# dtype, and the kernel's own products as its flop formula.
+OPS = torch.library.Library("repro_torch", "FRAGMENT")
+OPS.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
+           "int? window, float? softcap, float? sm_scale) -> Tensor")
+
+
+def _flash_attention_cuda_impl(q, k, v, causal, window, softcap, sm_scale):
+    return flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                softcap=softcap, sm_scale=sm_scale)
+
+
+def _flash_attention_cpu_impl(q, k, v, causal, window, softcap, sm_scale):
+    return ref.mha_ref(q, k, v, causal=causal, window=window,
+                       softcap=softcap, sm_scale=sm_scale).contiguous()
+
+
+OPS.impl("flash_attention", _flash_attention_cuda_impl, "CUDA")
+OPS.impl("flash_attention", _flash_attention_cpu_impl, "CPU")
+
+
+@torch.library.register_fake("repro_torch::flash_attention")
+def _flash_attention_fake(q, k, v, causal, window, softcap, sm_scale):
+    _check_launch(q, k, v, window, softcap)
+    return torch.empty_like(q)
+
+
+def visible_pairs(tq: int, tk: int, causal: bool,
+                  window: Optional[int]) -> int:
+    """(query, key) pairs the masks leave, query i at position i: each
+    query row sees min(i + 1, window, Tk) keys under a causal mask, else
+    min(window, Tk) (the kernel's masks, the positions of a prefill)."""
+    w = tk if window is None else min(window, tk)
+    if not causal:
+        return tq * w
+    # rows i < w see i + 1 keys (capped at Tk), the rest see w
+    ramp = min(tq, w)
+    return ramp * (ramp + 1) // 2 + (tq - ramp) * w
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def flash_flops(q_shape, k_shape, v_shape, causal, window, softcap,
+                sm_scale, *args, **kwargs) -> int:
+    """2 d per visible (query, key) pair for each product, QK^T and PV:
+    4 B H d pairs(Tq, Tk)."""
+    b, tq, h, d = q_shape
+    return 4 * b * h * d * visible_pairs(tq, k_shape[1], causal, window)
+
+
 class FlashAttention(torch.autograd.Function):
     """``flash_attention_cuda`` with a gradient through the plain version."""
 
@@ -169,7 +234,7 @@ class FlashAttention(torch.autograd.Function):
         ctx.kw = dict(causal=causal, window=window, softcap=softcap,
                       sm_scale=sm_scale)
         ctx.save_for_backward(q, k, v)
-        return flash_attention_cuda(q, k, v, **ctx.kw)
+        return _launch(q, k, v, **ctx.kw)
 
     @staticmethod
     def backward(ctx, grad_o):
@@ -190,5 +255,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window, softcap,
                                     sm_scale)
+    return _launch(q, k, v, causal=causal, window=window, softcap=softcap,
+                   sm_scale=sm_scale)
+
+
+def _launch(q, k, v, *, causal, window, softcap, sm_scale) -> torch.Tensor:
+    """The launch through ``repro_torch::flash_attention`` on a CUDA tensor
+    (on a fake one, the op's fake impl); any other tensor goes to
+    ``flash_attention_cuda``, which refuses it."""
+    if on_card(q):
+        return torch.ops.repro_torch.flash_attention.default(
+            q, k, v, causal, window, softcap, sm_scale)
     return flash_attention_cuda(q, k, v, causal=causal, window=window,
                                 softcap=softcap, sm_scale=sm_scale)

@@ -24,6 +24,7 @@ import dataclasses
 from typing import Iterator, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import build
 
@@ -201,6 +202,13 @@ def occupancy(stride: int, cin: int, smem_bytes: int) -> int:
         raise RuntimeError(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor "
                            f"failed ({-n})")
     return n
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes a kernel's route: a CUDA tensor, or a fake one
+    (``FakeTensorMode``), the dry run's shape-only stand-in for a CUDA
+    tensor on any build of torch."""
+    return t.device.type == "cuda" or isinstance(t, FakeTensor)
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, shape,

@@ -19,6 +19,11 @@ f32 checks) is scalar and splits d_ff over blocks with f32 partials.
 computes it (``fused_ffn_plan`` in the source), so the CPU tests can check
 it.
 
+The launch is the operator ``repro_torch::fused_ffn``: its CUDA impl is
+``fused_ffn_cuda``, its CPU impl the plain version, its fake impl shape and
+dtype only, and its flop formula (``ffn_flops``) the kernel's products,
+which the dry run's cost model counts.
+
 ``fused_ffn`` is the launch with a gradient (``FusedFFN``): the forward
 launches the kernel and saves only its inputs, the backward recomputes the
 FFN through its plain version ``ref.fused_ffn_ref`` under grad and returns
@@ -42,9 +47,11 @@ import dataclasses
 from typing import Iterator, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.fused_dsc import check_tensor
+from repro_torch.kernels.fused_dsc import check_tensor, on_card
 
 LAUNCHES = 0
 
@@ -218,6 +225,45 @@ def max_active_clusters(t: int, d: int, d_ff: int, n_sm: int) -> int:
     return n
 
 
+# The SMs of an H100 SXM: what the fake impl plans for, where no card is
+# there to ask.
+H100_SMS = 132
+
+
+def _check_launch(x, w_gate, w_up, w_down, act) -> Tuple[int, int, int]:
+    """What the launcher refuses before it touches the card (the fake impl
+    refuses the same): (T, d_model, d_ff)."""
+    if x.dim() != 2 or w_up.dim() != 2:
+        raise ValueError(f"x must be (T, d_model) and w_up (d_model, d_ff), "
+                         f"got {tuple(x.shape)}, {tuple(w_up.shape)}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"fused FFN takes float32 or bfloat16, got {x.dtype}")
+    if act not in ACT_CODES:
+        raise ValueError(f"unknown act {act!r}; one of {sorted(ACT_CODES)}")
+    t, d = x.shape
+    f = w_up.shape[1]
+    if t < 1 or d % 16 or f % 16:
+        raise ValueError(f"need T >= 1 and d_model, d_ff multiples of 16, got "
+                         f"T {t}, d_model {d}, d_ff {f}")
+    check_tensor(x, "x", x.dtype, (t, d), x.device)
+    if w_gate is not None:
+        check_tensor(w_gate, "w_gate", x.dtype, (d, f), x.device)
+    check_tensor(w_up, "w_up", x.dtype, (d, f), x.device)
+    check_tensor(w_down, "w_down", x.dtype, (f, d), x.device)
+    return t, d, f
+
+
+def _check_plan(pl: Plan, dtype: torch.dtype) -> None:
+    """The built launcher's refusals of a plan (``make_plan``): a grid dim
+    past 65535, or a bf16 ring of fewer than two stages."""
+    if dtype == torch.bfloat16:
+        refused = pl.grid[1] > 65535 or pl.stages < 2
+    else:
+        refused = pl.groups > 65535
+    if refused:
+        raise ValueError(f"fused FFN plan refused: {pl}")
+
+
 def fused_ffn_cuda(x: torch.Tensor, w_gate: Optional[torch.Tensor],
                    w_up: torch.Tensor, w_down: torch.Tensor, *,
                    act: str = "silu") -> torch.Tensor:
@@ -232,24 +278,8 @@ def fused_ffn_cuda(x: torch.Tensor, w_gate: Optional[torch.Tensor],
     Returns: (T, d_model) in x's dtype, on x's device and current stream.
     """
     global LAUNCHES
-    if x.dim() != 2 or w_up.dim() != 2:
-        raise ValueError(f"x must be (T, d_model) and w_up (d_model, d_ff), "
-                         f"got {tuple(x.shape)}, {tuple(w_up.shape)}")
-    if x.dtype not in _DTYPES:
-        raise TypeError(f"fused FFN takes float32 or bfloat16, got {x.dtype}")
-    if act not in ACT_CODES:
-        raise ValueError(f"unknown act {act!r}; one of {sorted(ACT_CODES)}")
-    t, d = x.shape
-    f = w_up.shape[1]
-    if t < 1 or d % 16 or f % 16:
-        raise ValueError(f"need T >= 1 and d_model, d_ff multiples of 16, got "
-                         f"T {t}, d_model {d}, d_ff {f}")
+    t, d, f = _check_launch(x, w_gate, w_up, w_down, act)
     dev = x.device
-    check_tensor(x, "x", x.dtype, (t, d), dev)
-    if w_gate is not None:
-        check_tensor(w_gate, "w_gate", x.dtype, (d, f), dev)
-    check_tensor(w_up, "w_up", x.dtype, (d, f), dev)
-    check_tensor(w_down, "w_down", x.dtype, (f, d), dev)
     if any(w.data_ptr() % 16 for w in (x, w_gate, w_up, w_down)
            if w is not None):
         raise ValueError("x and the weights must start on 16-byte boundaries "
@@ -258,6 +288,7 @@ def fused_ffn_cuda(x: torch.Tensor, w_gate: Optional[torch.Tensor],
         raise ValueError(f"fused_ffn_cuda needs CUDA tensors, got {dev}")
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     pl = plan(t, d, f, x.dtype, n_sm)
+    _check_plan(pl, x.dtype)
     ws = torch.empty(pl.ws_bytes // 4, dtype=torch.float32, device=dev)
     out = torch.empty_like(x)
     lib = _lib()
@@ -276,6 +307,46 @@ def fused_ffn_cuda(x: torch.Tensor, w_gate: Optional[torch.Tensor],
     return out
 
 
+# The launch as a PyTorch operator: dispatch, the dry run's fake tensors and
+# the cost model see one op with the kernel's own work, not its plain
+# version. The CUDA impl launches the kernel (everything that queries the
+# card runs inside it); the CPU impl is the plain version. Registered
+# through torch.library's define / impl: its dispatch costs a few us a
+# call, where the ``custom_op`` decorator's Python layers cost tens on the
+# card's host (``probes/op_dispatch.py``), on paths that are host-bound.
+OPS = torch.library.Library("repro_torch", "FRAGMENT")
+OPS.define("fused_ffn(Tensor x, Tensor? w_gate, Tensor w_up, Tensor w_down, "
+           "str act) -> Tensor")
+
+
+def _fused_ffn_cuda_impl(x, w_gate, w_up, w_down, act):
+    return fused_ffn_cuda(x, w_gate, w_up, w_down, act=act)
+
+
+def _fused_ffn_cpu_impl(x, w_gate, w_up, w_down, act):
+    return ref.fused_ffn_ref(x, w_gate, w_up, w_down, act=act)
+
+
+OPS.impl("fused_ffn", _fused_ffn_cuda_impl, "CUDA")
+OPS.impl("fused_ffn", _fused_ffn_cpu_impl, "CPU")
+
+
+@torch.library.register_fake("repro_torch::fused_ffn")
+def _fused_ffn_fake(x, w_gate, w_up, w_down, act):
+    t, d, f = _check_launch(x, w_gate, w_up, w_down, act)
+    _check_plan(plan(t, d, f, x.dtype, H100_SMS), x.dtype)
+    return torch.empty_like(x)
+
+
+@register_flop_formula(torch.ops.repro_torch.fused_ffn)
+def ffn_flops(x_shape, w_gate_shape, w_up_shape, w_down_shape, act,
+              *args, **kwargs) -> int:
+    """2 T d f per product: three gated, two ungated."""
+    t, d = x_shape
+    f = w_up_shape[1]
+    return 2 * t * d * f * (3 if w_gate_shape is not None else 2)
+
+
 class FusedFFN(torch.autograd.Function):
     """``fused_ffn_cuda`` with a gradient through the plain version."""
 
@@ -283,7 +354,7 @@ class FusedFFN(torch.autograd.Function):
     def forward(ctx, x, w_gate, w_up, w_down, act):
         ctx.act = act
         ctx.save_for_backward(x, w_gate, w_up, w_down)
-        return fused_ffn_cuda(x, w_gate, w_up, w_down, act=act)
+        return _launch(x, w_gate, w_up, w_down, act)
 
     @staticmethod
     def backward(ctx, grad_y):
@@ -301,7 +372,30 @@ def fused_ffn(x: torch.Tensor, w_gate: Optional[torch.Tensor],
     launch alone (serving)."""
     if _needs_grad(x, w_gate, w_up, w_down):
         return FusedFFN.apply(x, w_gate, w_up, w_down, act)
+    return _launch(x, w_gate, w_up, w_down, act)
+
+
+def _launch(x, w_gate, w_up, w_down, act: str) -> torch.Tensor:
+    """The launch through ``repro_torch::fused_ffn`` on a CUDA tensor (on a
+    fake one, the op's fake impl); any other tensor goes to
+    ``fused_ffn_cuda``, which refuses it."""
+    if on_card(x):
+        pad = -w_up.shape[1] % 16
+        if pad:
+            w_gate, w_up, w_down = _pad_d_ff(w_gate, w_up, w_down, pad)
+        return torch.ops.repro_torch.fused_ffn.default(x, w_gate, w_up,
+                                                      w_down, act)
     return fused_ffn_cuda(x, w_gate, w_up, w_down, act=act)
+
+
+def _pad_d_ff(w_gate, w_up, w_down, pad: int):
+    """The weights with ``pad`` zero d_ff columns (rows of ``w_down``), to
+    the multiple of 16 the kernel takes: a d_ff shard of 856 or 1848 on a
+    16-way model axis. Exact: a zero column gives act(0) = 0 (every act
+    here), and a zero row of ``w_down`` adds nothing."""
+    def cols(w):
+        return None if w is None else F.pad(w, (0, pad))
+    return cols(w_gate), cols(w_up), F.pad(w_down, (0, 0, 0, pad))
 
 
 def _needs_grad(*tensors) -> bool:

@@ -8,6 +8,13 @@ differentiable: under grad the kernel still runs the forward, and the
 backward goes through the plain version (``fused_ffn.FusedFFN``,
 ``flash_attention.FlashAttention``). The DSC kernel is int8 inference and
 has no gradient.
+
+``ffn``, ``attention`` and ``mha`` also take DTensors (a mesh): each rank
+runs the same call on its local shards through ``local_map``, so the
+inputs must be placed for that (``_local``): an FFN's rows on the batch
+axes and its d_ff on ``model`` (the output then a partial sum over
+``model``), attention's heads split alike over q, k and v (GQA's KV heads
+with their query heads).
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_dsc as _dsc
@@ -42,7 +50,10 @@ def ffn(x: torch.Tensor, w_gate: Optional[torch.Tensor], w_up: torch.Tensor,
         w_down: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
     """Fused gated (or, with ``w_gate`` None, ungated) FFN on a (T, d)
     token tile."""
-    if x.device.type == "cuda":
+    if isinstance(x, DTensor):
+        return _local(lambda *a: ffn(*a, act=act), x, w_up,
+                      x, w_gate, w_up, w_down)
+    if _dsc.on_card(x):
         return _ffn.fused_ffn(x, w_gate, w_up, w_down, act=act)
     if x.device.type == "cpu":
         return ref.fused_ffn_ref(x, w_gate, w_up, w_down, act=act)
@@ -56,7 +67,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Flash attention on (BH, Tq, d) tensors."""
     kw = dict(causal=causal, window=window, softcap=softcap,
               sm_scale=sm_scale)
-    if q.device.type == "cuda":
+    if isinstance(q, DTensor):
+        return _local(lambda *a: attention(*a, **kw), q, None, q, k, v)
+    if _dsc.on_card(q):
         return _fa.flash_attention(q[:, :, None], k[:, :, None],
                                    v[:, :, None], **kw)[:, :, 0]
     if q.device.type == "cpu":
@@ -78,9 +91,22 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"expected n_kv_heads={n_kv_heads}")
     kw = dict(causal=causal, window=window, softcap=softcap,
               sm_scale=sm_scale)
-    if q.device.type == "cuda":
+    if isinstance(q, DTensor):
+        return _local(lambda q, k, v: mha(q, k, v, n_kv_heads=k.shape[2],
+                                          **kw), q, None, q, k, v)
+    if _dsc.on_card(q):
         return _fa.flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), **kw)
     if q.device.type == "cpu":
         return ref.mha_ref(q, k, v, **kw)
     raise ValueError(f"mha: unsupported device {q.device}")
+
+
+def _local(fn, like: DTensor, reduced, *args):
+    """``fn`` on each rank's shards of ``args``; the output placed as
+    ``like``, a partial sum over ``model`` where ``reduced`` (the FFN's
+    d_ff) is sharded there."""
+    from repro_torch.runtime.actctx import local_call, partial_on, sharded_on
+    pl = (partial_on(like) if reduced is not None and sharded_on(reduced)
+          else list(like.placements))
+    return local_call(lambda *a: (fn(*a),), (pl,), *args)[0]

@@ -12,21 +12,36 @@ Attention ships in three disciplines, mirroring the DSC block:
   counterpart of the reference's ``pallas``.
 
 Decode attention is plain torch in every discipline, as in the reference.
-Weights are plain nested dicts of tensors. The reference's sequence-sharded
-decode branch and its sharding constraints belong to the multi-device
-runtime and are not ported.
+Weights are plain nested dicts of tensors.
+
+On a mesh (DTensor activations and weights, ``runtime/sharding.py``) each
+attention entry point runs on local shards (``_sharded_attention``): the
+weights' FSDP dim gathered (the all-gather XLA inserts at the reference's
+``constrain`` pins), heads over ``model`` where they divide, the output a
+partial sum over ``model`` reduced at the residual. A decode step whose KV
+heads do not divide the ``model`` axis takes the reference's
+sequence-sharded branch: the cache is sharded along its sequence, each rank
+scores its own slots in the grouped-GQA form (no KV repeat), and the
+softmax and PV combine across ranks by three small all-reduces.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import dataclasses
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import fused_ffn as ffnlib
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.fused_dsc import on_card
+from repro_torch.runtime.actctx import (grad_dtype_guard, local_call,
+                                        local_rank, mesh_size, partial_on,
+                                        placed, sharded_on)
 
 Params = Dict[str, Any]
 
@@ -37,7 +52,15 @@ Params = Dict[str, Any]
 
 
 def rms_norm(x, scale, *, eps: float = 1e-6, zero_centered: bool = False):
-    """RMSNorm in f32 (gemma-style optional (1+scale) parameterization)."""
+    """RMSNorm in f32 (gemma-style optional (1+scale) parameterization). On
+    a DTensor whose last dim is whole, on local shards: one ``local_map``
+    in place of seven DTensor ops."""
+    if isinstance(x, DTensor) and not any(
+            p.is_shard(x.dim() - 1) for p in x.placements):
+        return local_call(
+            lambda xl, sl: (rms_norm(xl, sl, eps=eps,
+                                     zero_centered=zero_centered),),
+            (list(x.placements),), x, placed(scale, None))[0]
     x32 = x.float()
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
@@ -159,6 +182,10 @@ def attention_fused(q, k, v, q_pos, k_pos, *, causal, window, softcap,
     tk = k.shape[1]
     k = repeat_kv(k, h)
     v = repeat_kv(v, h)
+    # the reference's guard: the f32 online-softmax cotangents stay out of
+    # the bf16 projections' backward (torch's casts already give a bf16
+    # tensor a bf16 gradient; the guard states it)
+    q, k, v = (grad_dtype_guard(t) for t in (q, k, v))
     block_k = min(block_k, tk)
     qs = (q.float() * sm_scale).to(q.dtype).float()
     m_run = torch.full((b, h, tq, 1), -1e30, dtype=torch.float32,
@@ -285,14 +312,22 @@ def _attend(q, k, v, positions, cfg: ArchConfig, *, local: bool):
 
 
 def attention_layer(x, p, cfg: ArchConfig, *, local: bool,
-                    positions=None, remat: str = "none") -> torch.Tensor:
+                    positions=None, remat: str = "none",
+                    heads: Optional["Heads"] = None) -> torch.Tensor:
     """Full-sequence attention (prefill without cache). ``remat``: the
     unit's remat mode; under ``zero_buffer`` the attention core (scores,
-    softmax, PV) is recomputed in the backward pass, not stored."""
+    softmax, PV) is recomputed in the backward pass, not stored. ``heads``:
+    which heads this rank holds, on a mesh (None: all)."""
+    if isinstance(x, DTensor):
+        return _sharded_attention(
+            lambda xl, pl, _, heads: (attention_layer(
+                xl, pl, cfg, local=local, positions=positions, remat=remat,
+                heads=heads),), x, p, cfg)
     b, t, _ = x.shape
     if positions is None:
         positions = torch.arange(t, device=x.device)[None].repeat(b, 1)
     q, k, v = _project_qkv(x, p, cfg, positions)
+    k, v = _kv_for(k, v, cfg, heads)
     o = ffnlib.remat_core(_attend, remat)(q, k, v, positions, cfg,
                                           local=local)
     return torch.einsum("bthk,hkd->btd", o, p["wo"].to(x.dtype))
@@ -309,49 +344,69 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, *, local: bool,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def attention_prefill(x, p, cfg: ArchConfig, cache, *, local: bool):
+def attention_prefill(x, p, cfg: ArchConfig, cache, *, local: bool,
+                      heads: Optional["Heads"] = None):
     """Prefill: full-sequence attention + populate the KV cache in place.
 
     Local layers keep only the trailing ``window`` keys (ring buffer); the
     write offset is chosen so subsequent decode steps continue the ring.
     """
+    if isinstance(x, DTensor):
+        out = _sharded_attention(
+            lambda xl, pl, cl, heads: (attention_prefill(
+                xl, pl, cfg, cl, local=local, heads=heads)[0],),
+            x, p, cfg, cache)
+        return out, cache
     b, t, _ = x.shape
     positions = torch.arange(t, device=x.device)[None].repeat(b, 1)
     q, k, v = _project_qkv(x, p, cfg, positions)
-    o = _attend(q, k, v, positions, cfg, local=local)
-    size = cache["k"].shape[1]
+    size = heads.cache_len if heads is not None else cache["k"].shape[1]
     if t >= size:   # keep last `size` keys, aligned to the ring phase
         start = t - size
         # ring slot of absolute position p is p % size; roll so slot matches
         shift = (t - size) % size
-        cache["k"].copy_(torch.roll(k[:, start:], shift, dims=1))
-        cache["v"].copy_(torch.roll(v[:, start:], shift, dims=1))
+        rows_k = torch.roll(k[:, start:], shift, dims=1)
+        rows_v = torch.roll(v[:, start:], shift, dims=1)
     else:
-        cache["k"][:, :t] = k
-        cache["v"][:, :t] = v
+        rows_k, rows_v = k, v
+    seq_off = heads.seq_off if heads is not None else 0
+    _write_rows(cache["k"], rows_k, 0, seq_off)
+    _write_rows(cache["v"], rows_v, 0, seq_off)
+    k, v = _kv_for(k, v, cfg, heads)
+    o = _attend(q, k, v, positions, cfg, local=local)
     out = torch.einsum("bthk,hkd->btd", o, p["wo"].to(x.dtype))
     return out, cache
 
 
-def attention_decode(x, p, cfg: ArchConfig, cache, pos: int, *, local: bool):
+def attention_decode(x, p, cfg: ArchConfig, cache, pos: int, *, local: bool,
+                     heads: Optional["Heads"] = None):
     """One-token decode step against the cache, which it updates in place.
 
     ``pos``: the absolute position of the incoming token. The cache is a
     ring buffer for local layers (slot = pos % size) and a flat buffer for
     global layers. Scores and the PV product accumulate in f32 from the
     cache's dtype, as the reference's ``preferred_element_type`` does.
+    On a mesh whose ``model`` axis the KV heads do not divide, the
+    sequence-sharded branch (``_decode_seq_sharded``).
     """
+    if isinstance(x, DTensor):
+        out = _sharded_attention(
+            lambda xl, pl, cl, heads: (attention_decode(
+                xl, pl, cfg, cl, pos, local=local, heads=heads)[0],),
+            x, p, cfg, cache)
+        return out, cache
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
     q, k, v = _project_qkv(x, p, cfg, positions)
     ck, cv = cache["k"], cache["v"]
-    size = ck.shape[1]
+    size = heads.cache_len if heads is not None else ck.shape[1]
+    seq_off = heads.seq_off if heads is not None else 0
     is_ring = bool(local and cfg.window and size == cfg.window)
     slot = (pos % size) if is_ring else pos
-    ck[:, slot:slot + 1] = k.to(ck.dtype)
-    cv[:, slot:slot + 1] = v.to(cv.dtype)
+    _write_rows(ck, k, slot, seq_off)
+    _write_rows(cv, v, slot, seq_off)
     # Positions of cached slots.
-    idx = torch.arange(size, device=x.device)
+    idx = torch.arange(seq_off, seq_off + ck.shape[1], device=x.device)
     if is_ring:
         # slot i holds the most recent position p' <= pos with p' % size == i
         k_pos = pos - torch.remainder(pos - idx, size)
@@ -361,8 +416,13 @@ def attention_decode(x, p, cfg: ArchConfig, cache, pos: int, *, local: bool):
     valid = (k_pos >= 0) & (k_pos <= pos)
     if local and cfg.window:
         valid &= (pos - k_pos) < cfg.window
-    kr = repeat_kv(ck, cfg.n_heads_padded)
-    vr = repeat_kv(cv, cfg.n_heads_padded)
+    if heads is not None and heads.seq_sharded:
+        o = _decode_seq_sharded(q, ck, cv, valid, cfg, heads)
+        out = torch.einsum("bthk,hkd->btd", o, p["wo"].to(x.dtype))
+        return out, cache
+    ck, cv = _kv_for(ck, cv, cfg, heads)
+    kr = repeat_kv(ck, q.shape[2])
+    vr = repeat_kv(cv, q.shape[2])
     qf = (q.float() * hd ** -0.5).to(kr.dtype)              # (B, 1, H, hd)
     s = torch.einsum("bqhd,bkhd->bhqk", qf.float(), kr.float())
     if cfg.attn_softcap is not None:
@@ -373,3 +433,146 @@ def attention_decode(x, p, cfg: ArchConfig, cache, pos: int, *, local: bool):
     o = o.to(x.dtype)
     out = torch.einsum("bthk,hkd->btd", o, p["wo"].to(x.dtype))
     return out, cache
+
+
+# ---------------------------------------------------------------------------
+# Attention on a mesh
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Heads:
+    """What one rank holds of an attention layer on a mesh: query heads
+    [q_off, q_off + n_q) of ``n_heads_padded``, the cache's slots
+    [seq_off, seq_off + local) of ``cache_len``, the ``model`` group where
+    the cache is sharded along its sequence, and whether the layer takes
+    the sequence-sharded decode branch."""
+
+    q_off: int
+    n_q: int
+    cache_len: int = 0
+    seq_off: int = 0
+    group: Any = None
+    seq_sharded: bool = False
+
+
+def _attn_weights(p, dt):
+    """The attention weights at their compute placements: each cast to the
+    compute dtype, then its FSDP dim gathered (the reference pins (D, M) and
+    XLA gathers D there); heads stay on ``model`` where they divide."""
+    out = {}
+    for name, leaf in p.items():
+        if name in ("wq", "wk", "wv"):
+            out[name] = placed(leaf.to(dt), None, "M", None)
+        elif name == "wo":
+            out[name] = placed(leaf.to(dt), "M", None, None)
+        elif name in ("bq", "bk", "bv"):
+            out[name] = placed(leaf.to(dt), "M", None)
+        else:
+            out[name] = placed(leaf, *(None,) * leaf.dim())
+    return out
+
+
+def _sharded_attention(fn, x, p, cfg: ArchConfig, cache=None):
+    """``fn(x, p, cache, heads)`` (a one-device attention entry point, its
+    output in a 1-tuple) on this rank's shards: x batch-sharded and whole
+    over ``model``, the weights as ``_attn_weights`` places them, the cache
+    as it is placed (``sharding.cache_specs``). Returns the output, a
+    partial sum over ``model`` where the heads are sharded, reduced
+    here."""
+    mesh = x.device_mesh
+    x = placed(x, "B", None, None)
+    w = _attn_weights(p, x.dtype)
+    q_sharded = sharded_on(w["wq"])
+    m = mesh_size(mesh, "model")
+    n_q = cfg.n_heads_padded // (m if q_sharded else 1)
+    cache_len = 0 if cache is None else cache["k"].shape[1]
+    seq_cut = cache is not None and sharded_on(cache["k"]) and \
+        not sharded_on(w["wk"])
+    r = local_rank(mesh, "model")
+    heads = Heads(r * n_q if q_sharded else 0, n_q, cache_len,
+                  r * (cache_len // m) if seq_cut else 0,
+                  mesh.get_group("model") if seq_cut else None,
+                  # the reference's branch: KV heads that do not divide
+                  # the model axis
+                  seq_sharded=cfg.n_kv_heads % m != 0)
+    out_pl = (partial_on(x) if q_sharded else list(x.placements),)
+    out = local_call(lambda xl, pl, cl: fn(xl, pl, cl, heads), out_pl,
+                     x, w, cache)
+    return placed(out[0], "B", None, None)
+
+
+def _kv_for(k, v, cfg: ArchConfig, heads: Optional[Heads]):
+    """The KV heads this rank's query heads read: all of them off a mesh
+    or where the KV heads are sharded alike; else the slice of the whole
+    set that query heads [q_off, q_off + n_q) map to (head h reads KV head
+    h // (H / Hkv))."""
+    if heads is None or k.shape[2] != cfg.n_kv_heads or \
+            heads.n_q == cfg.n_heads_padded:
+        return k, v
+    g = cfg.n_heads_padded // cfg.n_kv_heads
+    if heads.n_q % g and g % heads.n_q:
+        raise ValueError(f"{heads.n_q} local query heads split a KV group "
+                         f"of {g}")
+    lo = heads.q_off // g
+    hi = (heads.q_off + heads.n_q - 1) // g + 1
+    return k[:, :, lo:hi], v[:, :, lo:hi]
+
+
+def _write_rows(leaf, rows, start: int, seq_off: int) -> None:
+    """Write ``rows`` (B, n, H, d), the cache's slots [start, start + n),
+    into ``leaf``, which holds slots [seq_off, seq_off + leaf's length)."""
+    lo = max(start, seq_off)
+    hi = min(start + rows.shape[1], seq_off + leaf.shape[1])
+    if lo < hi:
+        leaf[:, lo - seq_off:hi - seq_off] = rows[:, lo - start:hi - start]
+
+
+def _f32_bmm(a, b):
+    """a @ b for the cache's dtype with an f32 result and no f32 copy of
+    ``b`` on the card (``out_dtype``: the reference's
+    ``preferred_element_type``). The CPU has no such product, and there the
+    operands are upcast: a copy of this rank's cache slice, per KV head."""
+    if on_card(b):
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _decode_seq_sharded(q, ck, cv, valid, cfg: ArchConfig, heads: Heads):
+    """The reference's sequence-sharded decode attention: every query head
+    (gathered over ``model``) against this rank's cache slots, in the
+    grouped-GQA form without a KV repeat; scores and PV in f32, the
+    cache read in its own dtype. Softmax max and sum and the PV product are
+    all-reduced over the ranks that share the sequence. Returns this rank's
+    query heads of o (B, 1, n_q, hd) in q's dtype."""
+    group = heads.group
+    off, n_q = 0, q.shape[2]
+    if group is None:               # the whole sequence here
+        ck, cv = _kv_for(ck, cv, cfg, heads)
+    elif n_q < cfg.n_heads_padded:
+        q = funcol.all_gather_tensor(q.contiguous(), 2, group)
+        off = heads.q_off
+    b, _, h, hd = q.shape
+    hkv = ck.shape[2]
+    g = h // hkv
+    qg = (q.float() * hd ** -0.5).to(ck.dtype).reshape(b, hkv, g, hd)
+    # (B, Hkv, g, S) scores, one KV head at a time: no head repeat
+    s = torch.stack([_f32_bmm(qg[:, j], ck[:, :, j].transpose(1, 2))
+                     for j in range(hkv)], dim=1)
+    if cfg.attn_softcap is not None:
+        s = cfg.attn_softcap * torch.tanh(s / cfg.attn_softcap)
+    s = torch.where(valid[None, None, None, :], s, torch.full_like(s, -1e30))
+    m = s.amax(dim=-1, keepdim=True)
+    if group is not None:
+        m = funcol.all_reduce(m, "max", group)
+    e = torch.exp(s - m)
+    denom = e.sum(dim=-1, keepdim=True)
+    if group is not None:
+        denom = funcol.all_reduce(denom, "sum", group)
+    pattn = (e / denom).to(cv.dtype)
+    o = torch.stack([_f32_bmm(pattn[:, j], cv[:, :, j])
+                     for j in range(hkv)], dim=1)            # (B, Hkv, g, hd)
+    if group is not None:
+        o = funcol.all_reduce(o, "sum", group)
+    o = o.reshape(b, 1, h, hd)
+    return o[:, :, off:off + n_q].to(q.dtype)

@@ -55,7 +55,10 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor import zeros as dtensor_zeros
 
 from repro_torch import resolve_device, tree
 from repro_torch.configs.base import ArchConfig
@@ -64,6 +67,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rg
 from repro_torch.models import rwkv6 as rwkv
+from repro_torch.runtime.actctx import (constrain, local_call, local_rank,
+                                        mesh_size, placed, sharded_on)
 
 Params = Dict[str, Any]
 
@@ -230,13 +235,14 @@ def layer_decode(x, p, kind, cfg, cache, pos: int):
 # ---------------------------------------------------------------------------
 
 
-def _stacked_units(gen, cfg: ArchConfig, device, dtype) -> Params:
+def _stacked_units(gen, cfg: ArchConfig, device, dtype, keep) -> Params:
     """The pattern units' layers, each leaf stacked on a leading n_units
     axis, filled one unit at a time so that the peak is one unit over the
-    stack."""
+    stack (``keep`` applied to each unit before it is stacked)."""
     def unit():
-        return {str(i): init_layer(gen, kind, cfg, device, dtype)
-                for i, kind in enumerate(cfg.pattern)}
+        return keep("units", {str(i): init_layer(gen, kind, cfg, device,
+                                                 dtype)
+                              for i, kind in enumerate(cfg.pattern)})
 
     def alloc(node):
         if isinstance(node, Mapping):
@@ -261,16 +267,22 @@ def _stacked_units(gen, cfg: ArchConfig, device, dtype) -> Params:
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device="cuda",
-                dtype=None) -> Params:
+                dtype=None, local=None) -> Params:
     """Seeded random weights drawn on ``device`` from a ``torch.Generator``
     (not the reference's ``jax.random`` numbers). Matrices are stored in
     ``dtype`` (default ``cfg.dtype``), norm scales and
-    ``layers.F32_LEAVES`` in f32."""
+    ``layers.F32_LEAVES`` in f32.
+
+    ``local(path, leaf)``, where given, takes each leaf as it is drawn (a
+    pattern unit's before it is stacked; ``path`` is the leaf's in the
+    whole tree) to the part to keep: the tree then holds only those parts,
+    of the same numbers, and no more than one layer or one top-level leaf
+    is ever whole."""
     _check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return _init(cfg, gen, dev, dtype)
+    return _init(cfg, gen, dev, dtype, local)
 
 
 def abstract_params(cfg: ArchConfig, dtype=torch.float32) -> Params:
@@ -280,21 +292,31 @@ def abstract_params(cfg: ArchConfig, dtype=torch.float32) -> Params:
     return _init(cfg, torch.Generator(), torch.device("meta"), dtype)
 
 
-def _init(cfg: ArchConfig, gen, dev, dtype) -> Params:
+def _init(cfg: ArchConfig, gen, dev, dtype, local=None) -> Params:
     dt = getattr(torch, cfg.dtype) if dtype is None else dtype
     vp, d = cfg.vocab_padded(), cfg.d_model
+
+    def keep(prefix, node):
+        if local is None:
+            return node
+        return tree.unflatten(node, [
+            local(tree.SEP.join(x for x in (prefix, path) if x), leaf)
+            for path, leaf in tree.flatten_with_path(node)])
+
     p: Params = {}
     if cfg.frontend != "audio":   # audio: precomputed frames, no embedding
-        p["embed"] = L.normal_leaf(gen, "embed", (vp, d), d ** -0.5, dev, dt)
+        p["embed"] = keep("embed", L.normal_leaf(gen, "embed", (vp, d),
+                                                 d ** -0.5, dev, dt))
     if cfg.n_units > 0:
-        p["units"] = _stacked_units(gen, cfg, dev, dt)
+        p["units"] = _stacked_units(gen, cfg, dev, dt, keep)
     if cfg.tail_kinds:
-        p["tail"] = {str(i): init_layer(gen, kind, cfg, dev, dt)
+        p["tail"] = {str(i): keep(f"tail{tree.SEP}{i}",
+                                  init_layer(gen, kind, cfg, dev, dt))
                      for i, kind in enumerate(cfg.tail_kinds)}
-    p["final_norm"] = L.init_rms(d, dev)
+    p["final_norm"] = keep("final_norm", L.init_rms(d, dev))
     if not cfg.tie_embeddings:
-        p["lm_head"] = L.normal_leaf(gen, "lm_head", (d, vp), d ** -0.5, dev,
-                                     dt)
+        p["lm_head"] = keep("lm_head", L.normal_leaf(
+            gen, "lm_head", (d, vp), d ** -0.5, dev, dt))
     return p
 
 
@@ -342,11 +364,15 @@ def _unit_layer(params: Params, u: int, i: int) -> Params:
 
 
 def _layers(params: Params, cfg: ArchConfig):
-    """(layer params, kind, cache key) in execution order: serving's walk
-    (a view per unit and layer; training's is ``_unbind_units``)."""
+    """(layer params, kind, cache key) in execution order: serving's walk,
+    a view per unit and layer; on a mesh the units' views come from one
+    ``unbind`` per leaf (one DTensor op per leaf, not per unit and leaf)."""
+    units = (_unbind_units(params, cfg)
+             if isinstance(params["final_norm"], DTensor) else None)
     for u in range(cfg.n_units):
         for i, kind in enumerate(cfg.pattern):
-            yield _unit_layer(params, u, i), kind, ("units", u, str(i))
+            p = units[u][str(i)] if units else _unit_layer(params, u, i)
+            yield p, kind, ("units", u, str(i))
     for i, kind in enumerate(cfg.tail_kinds):
         yield params["tail"][str(i)], kind, ("tail", None, str(i))
 
@@ -363,6 +389,8 @@ def _device(params) -> torch.device:
 def _embed(params, cfg: ArchConfig, tokens, patches=None, frames=None):
     dt = getattr(torch, cfg.dtype)
     dev = _device(params)
+    if isinstance(params["final_norm"], DTensor):
+        return _embed_sharded(params, cfg, tokens, patches, frames)
     if cfg.frontend == "audio":
         return torch.as_tensor(frames, device=dev).to(dt)   # stub: frames
     x = params["embed"][_tokens(tokens, dev)].to(dt)
@@ -374,14 +402,69 @@ def _embed(params, cfg: ArchConfig, tokens, patches=None, frames=None):
     return x
 
 
+def _embed_sharded(params, cfg: ArchConfig, tokens, patches, frames):
+    """``_embed`` on a mesh: the batch DTensors (``sharding.batch_specs``)
+    looked up in the table's local d_model columns, then gathered to the
+    canonical activation layout, batch-sharded and whole over ``model``
+    (the reference's pin right after its lookup)."""
+    dt = getattr(torch, cfg.dtype)
+    if cfg.frontend == "audio":
+        return constrain(placed(frames, "B", None, None).to(dt),
+                         "B", None, None)
+    table = params["embed"]
+    tokens = placed(tokens, "B", *(None,) * (tokens.dim() - 1))
+    scale = cfg.d_model ** 0.5 if cfg.embed_scale else None
+
+    def lookup(tab, tok):
+        x = tab[tok].to(dt)
+        if scale is not None:
+            x = x * torch.tensor(scale, dtype=dt, device=x.device)
+        return (x,)
+
+    out_pl = list(tokens.placements)
+    names = tokens.device_mesh.mesh_dim_names
+    if "model" in names and sharded_on(table):
+        out_pl[names.index("model")] = Shard(tokens.dim())
+    x = local_call(lookup, (out_pl,), table, tokens)[0]
+    x = placed(x, "B", None, None)
+    if cfg.frontend == "vision" and patches is not None:
+        x = torch.cat([placed(patches, "B", None, None).to(dt), x], dim=1)
+    return constrain(x, "B", None, None)
+
+
 def _head(params, cfg: ArchConfig, x):
     x = _norm(x, params["final_norm"], cfg)
-    w = (params["embed"].T if cfg.tie_embeddings
-         else params["lm_head"]).to(x.dtype)
-    logits = (x @ w).float()
+    if isinstance(x, DTensor):
+        logits = _head_sharded(params, cfg, x)
+    else:
+        w = (params["embed"].T if cfg.tie_embeddings
+             else params["lm_head"]).to(x.dtype)
+        logits = (x @ w).float()
+    logits = constrain(logits, "B", None, "M")   # vocab TP-sharded
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
+
+
+def _head_sharded(params, cfg: ArchConfig, x):
+    """The head's product on local shards: x batch-sharded and whole over
+    ``model``, the weight with its vocab over ``model`` (the tied table
+    moved from d_model to vocab over ``model``; lm_head's FSDP dim
+    gathered), the logits' vocab over ``model``."""
+    x = placed(x, "B", *(None,) * (x.dim() - 1))
+    if cfg.tie_embeddings:
+        w = placed(params["embed"].to(x.dtype), "M", None)
+        fn = lambda xl, wl: ((xl @ wl.T).float(),)           # noqa: E731
+        split = sharded_on(w)
+    else:
+        w = placed(params["lm_head"].to(x.dtype), None, "M")
+        fn = lambda xl, wl: ((xl @ wl).float(),)             # noqa: E731
+        split = sharded_on(w)
+    pl = list(x.placements)
+    names = x.device_mesh.mesh_dim_names
+    if split:
+        pl[names.index("model")] = Shard(x.dim() - 1)
+    return local_call(fn, (pl,), x, w)[0]
 
 
 def _tokens(tokens, device):
@@ -402,11 +485,15 @@ def _run_layers(x, params, cfg: ArchConfig):
     run_unit = ffnlib.apply_remat(unit, mode)
     aux = None
     for unit_p in _unbind_units(params, cfg):
+        x = constrain(x, "B", None, None)     # pin the unit-carry layout
         x, aux = run_unit(x, aux, unit_p)
     for i, kind in enumerate(cfg.tail_kinds):
         x, aux = layer_apply(x, params["tail"][str(i)], kind, cfg, aux)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if isinstance(x, DTensor):
+            aux = DTensor.from_local(aux, x.device_mesh,
+                                     [Replicate()] * x.device_mesh.ndim)
     return x, aux
 
 
@@ -427,6 +514,7 @@ def forward(params, cfg: ArchConfig, tokens=None, patches=None,
     training goes through ``forward_aux``."""
     x = _embed(params, cfg, tokens, patches, frames)
     for p, kind, _ in _layers(params, cfg):
+        x = constrain(x, "B", None, None)
         x = layer_apply(x, p, kind, cfg)[0]
     return _head(params, cfg, x)
 
@@ -441,6 +529,10 @@ def loss_fn(params, cfg: ArchConfig, batch: Mapping):
     logits, aux = forward_aux(params, cfg, tokens=batch.get("tokens"),
                               patches=batch.get("patches"),
                               frames=batch.get("frames"))
+    if isinstance(logits, DTensor):
+        nll = _nll_sharded(logits, batch, cfg)
+        loss = nll + aux
+        return loss, {"loss": loss, "nll": nll, "aux": aux}
     labels = _tokens(batch["labels"], logits.device)
     if cfg.frontend == "vision" and batch.get("patches") is not None:
         logits = logits[:, batch["patches"].shape[1]:]   # text positions
@@ -451,6 +543,65 @@ def loss_fn(params, cfg: ArchConfig, batch: Mapping):
     nll = F.cross_entropy(logits.reshape(-1, vp), labels.reshape(-1))
     loss = nll + aux
     return loss, {"loss": loss, "nll": nll, "aux": aux}
+
+
+def _nll_sharded(logits, batch, cfg: ArchConfig):
+    """``loss_fn``'s mean cross entropy on a mesh, without gathering the
+    vocab: each rank holds a slice of the (masked, padded) vocab for its
+    batch rows, the log-sum-exp and the label's logit are combined over
+    ``model`` by all-reduces, and the mean over all tokens is each batch
+    shard's sum over the global count, a pending sum over the batch axes."""
+    mesh = logits.device_mesh
+    logits = placed(logits, "B", None, "M")
+    labels = placed(batch["labels"], "B", None)
+    if cfg.frontend == "vision" and batch.get("patches") is not None:
+        logits = logits[:, batch["patches"].shape[1]:]   # text positions
+    names = mesh.mesh_dim_names
+    split = sharded_on(logits)
+    group = mesh.get_group("model") if split else None
+    v_local = logits.shape[-1] // (mesh_size(mesh, "model") if split else 1)
+    v0 = local_rank(mesh, "model") * v_local if split else 0
+
+    def nll(lg, lab):
+        col = torch.arange(v0, v0 + lg.shape[-1], device=lg.device)
+        lg = lg.masked_fill(col >= cfg.vocab, -1e30)
+        if group is None:       # the whole vocab here: loss_fn's own form
+            mean = F.cross_entropy(lg.reshape(-1, lg.shape[-1]),
+                                   lab.reshape(-1).long())
+            return (mean * (lab.numel() / n_tokens),)
+        mx = lg.amax(dim=-1, keepdim=True).detach()
+        if group is not None:
+            mx = funcol.all_reduce(mx, "max", group)
+        se = torch.exp(lg - mx).sum(dim=-1)
+        mine = (lab >= v0) & (lab < v0 + lg.shape[-1])
+        idx = (lab - v0).clamp(0, lg.shape[-1] - 1)
+        picked = torch.where(mine, lg.gather(-1, idx[..., None])[..., 0],
+                             torch.zeros_like(se))
+        if group is not None:
+            se = _AllReduceSum.apply(se, group)
+            picked = _AllReduceSum.apply(picked, group)
+        return ((torch.log(se) + mx[..., 0] - picked).sum() / n_tokens,)
+
+    n_tokens = labels.numel()
+    part = [Replicate()] * mesh.ndim
+    for a in ("pod", "data"):
+        if a in names and labels.placements[names.index(a)].is_shard():
+            part[names.index(a)] = Partial()
+    out = local_call(nll, (part,), logits, labels)[0]
+    return out.redistribute(mesh, [Replicate()] * mesh.ndim)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """A sum over ``group`` whose gradient reaches every rank's input
+    unchanged (each rank's term enters the sum once)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return funcol.wait_tensor(funcol.all_reduce(x, "sum", group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -471,11 +622,39 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     return cache
 
 
+def sharded_cache(cfg: ArchConfig, batch: int, max_len: int, mesh,
+                  dtype=torch.bfloat16) -> Params:
+    """``init_cache``'s zeros as DTensors on ``mesh``, placed by
+    ``sharding.cache_specs``; each rank allocates only its shard."""
+    from repro_torch.runtime import sharding as shd
+    abstract = init_cache(cfg, batch, max_len, dtype, torch.device("meta"))
+    specs = shd.cache_specs(cfg, mesh, abstract)
+
+    def zeros(path, a):
+        pl = shd.placements(shd.spec_at(specs, path), mesh, tuple(a.shape))
+        return dtensor_zeros(a.shape, dtype=a.dtype, device_mesh=mesh,
+                             placements=pl)
+    return tree.unflatten(abstract, [zeros(p, a) for p, a in
+                                     tree.flatten_with_path(abstract)])
+
+
 def _layer_cache(cache: Params, key) -> Params:
     """Views of one layer's leaves in the (stacked) cache."""
     group, u, i = key
     c = cache[group][i]
     return c if u is None else {k: a[u] for k, a in c.items()}
+
+
+def _layer_caches(cache: Params, cfg: ArchConfig):
+    """``_layer_cache`` of every layer, {key: views}; a stacked DTensor
+    leaf is split by one ``unbind``."""
+    out = {("tail", None, i): c for i, c in cache.get("tail", {}).items()}
+    for i, c in cache.get("units", {}).items():
+        pieces = {k: torch.unbind(a) if isinstance(a, DTensor) else a
+                  for k, a in c.items()}
+        for u in range(cfg.n_units):
+            out[("units", u, i)] = {k: p[u] for k, p in pieces.items()}
+    return out
 
 
 def _store(view: Params, new: Params) -> None:
@@ -492,9 +671,15 @@ def prefill(params, cfg: ArchConfig, tokens=None, patches=None, frames=None,
     (last-token logits (B, Vp), cache). ``max_len`` counts the prefix."""
     x = _embed(params, cfg, tokens, patches, frames)
     b, t = x.shape[0], x.shape[1]
-    cache = init_cache(cfg, b, max_len or t, cache_dtype, x.device)
+    if isinstance(x, DTensor):
+        cache = sharded_cache(cfg, b, max_len or t, x.device_mesh,
+                              cache_dtype)
+    else:
+        cache = init_cache(cfg, b, max_len or t, cache_dtype, x.device)
+    views = _layer_caches(cache, cfg)
     for p, kind, key in _layers(params, cfg):
-        view = _layer_cache(cache, key)
+        x = constrain(x, "B", None, None)
+        view = views[key]
         x, new = layer_prefill(x, p, kind, cfg, view)
         _store(view, new)
     return _head(params, cfg, x[:, -1:])[:, 0], cache
@@ -506,9 +691,13 @@ def decode_step(params, cfg: ArchConfig, cache, token, pos: int):
     place."""
     if cfg.frontend == "audio":
         raise ValueError(f"{cfg.name} is encoder-only: it has no decode step")
-    x = _embed(params, cfg, _tokens(token, _device(params))[:, None])
+    if not isinstance(token, DTensor):
+        token = _tokens(token, _device(params))
+    x = _embed(params, cfg, token[:, None])
+    views = _layer_caches(cache, cfg)
     for p, kind, key in _layers(params, cfg):
-        view = _layer_cache(cache, key)
+        x = constrain(x, "B", None, None)
+        view = views[key]
         x, new = layer_decode(x, p, kind, cfg, view, int(pos))
         _store(view, new)
     return _head(params, cfg, x)[:, 0], cache

@@ -4,15 +4,22 @@
 Expert weights are stacked on a leading ``experts`` axis. Dispatch avoids the
 O(T x E x C) one-hot einsum of the classic GShard formulation: the position
 in its expert comes from a cumsum over the (T*k, E) assignment one-hot, then
-tokens scatter directly into the (E * C, d) expert buffer (out-of-capacity
-tokens fall into a drop slot, which is discarded). The routed experts are
-batched products over E, plain torch as in the reference, whose einsums run
-outside any Pallas kernel; the shared expert goes through
+each slot of the (E * C, d) expert buffer gathers its token directly
+(out-of-capacity tokens fall into a drop slot, which is discarded). The
+routed experts are batched products over E, plain torch as in the
+reference, whose einsums run outside any Pallas kernel; the shared expert
+goes through
 ``core/fused_ffn.ffn_apply``, on a card the fused-FFN kernel.
 
 The router runs in f32 against its f32 weights (``layers.F32_LEAVES``); a
 Switch-style auxiliary load-balance loss (E * sum(f_e * p_e)) is returned
 to the caller.
+
+On a mesh (``_moe_sharded``) the layout is the reference's pins: experts
+over ``model``, capacity over ``data``. Every rank sees all tokens' routes
+(so the capacity and the drops are those of one device), fills and runs
+only its own (experts, capacity slots) window, and scatters back its
+contributions; the sum over ranks is the reduce the placements state.
 """
 
 from __future__ import annotations
@@ -21,11 +28,14 @@ from typing import Any, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.configs.base import ArchConfig, MoESpec
 from repro_torch.core import fused_ffn as ffnlib
 from repro_torch.kernels.ref import ACTS
 from repro_torch.models.layers import normal_leaf
+from repro_torch.runtime.actctx import (local_call, local_rank, mesh_size,
+                                        placed, sharded_on)
 
 Params = Dict[str, Any]
 
@@ -86,42 +96,151 @@ def _dispatch(ids, n_experts: int, cap: int):
     return dest, keep
 
 
+def _aux(probs, ids, m: MoESpec):
+    """The Switch-style load-balance loss, E * sum(f_e * p_e), weighted."""
+    e = m.n_experts
+    f_e = F.one_hot(ids[:, 0], e).float().mean(dim=0)
+    return e * torch.sum(f_e * probs.mean(dim=0)) * m.router_aux_weight
+
+
 def moe_layer(x, p: Params, cfg: ArchConfig) -> Tuple[torch.Tensor,
                                                       torch.Tensor]:
     """x: (B, T, D) -> (y, aux_loss)."""
+    if isinstance(x, DTensor):
+        return _moe_sharded(x, p, cfg)
     m = cfg.moe
     b, t, d = x.shape
-    n, e, dt = b * t, m.n_experts, x.dtype
+    n, dt = b * t, x.dtype
     xf = x.reshape(n, d)
-    act = ACTS[cfg.act]
-
-    # --- routing (f32) -------------------------------------------------------
     probs, gates, ids = _route(xf, p, m)
-    f_e = F.one_hot(ids[:, 0], e).float().mean(dim=0)
-    aux = e * torch.sum(f_e * probs.mean(dim=0)) * m.router_aux_weight
-
-    # --- capacity-based scatter dispatch -------------------------------------
-    cap = capacity(n, m)
-    dest, keep = _dispatch(ids, e, cap)
-    buf = torch.zeros((e * cap + 1, d), dtype=dt, device=x.device)
-    # indices repeat only at the drop slot, whose row is discarded
-    buf.index_copy_(0, dest, xf.repeat_interleave(m.top_k, dim=0))
-    expert_in = buf[:-1].reshape(e, cap, d)
-
-    # --- per-expert FFN, batched over E --------------------------------------
-    if cfg.gated:
-        h = act(torch.bmm(expert_in, p["w_gate"].to(dt)))
-        h = h * torch.bmm(expert_in, p["w_up"].to(dt))
-    else:
-        h = act(torch.bmm(expert_in, p["w_up"].to(dt)))
-    expert_out = torch.bmm(h, p["w_down"].to(dt)).reshape(e * cap, d)
-
-    # --- combine: gather back + gate-weighted sum over k ---------------------
-    flat_out = torch.cat([expert_out, expert_out.new_zeros((1, d))])
-    weight = (gates.reshape(-1) * keep).to(dt)
-    y = (flat_out[dest] * weight[:, None]).reshape(n, m.top_k, d).sum(dim=1)
+    w = {k: p[k].to(dt) for k in _EXPERTS if k in p}
+    y = _routed(xf, w, gates, ids, cfg, 0, 0, capacity(n, m))
 
     # --- shared-expert path (dense, always on) -------------------------------
+    if m.shared_d_ff:
+        y = y + ffnlib.ffn_apply(xf, p["shared"], gated=cfg.gated,
+                                 act_name=cfg.act, impl=cfg.block_impl,
+                                 chunk=cfg.ffn_chunk)
+    return y.reshape(b, t, d), _aux(probs, ids, m)
+
+
+_EXPERTS = ("w_gate", "w_up", "w_down")
+
+
+def _routed(xf, w: Params, gates, ids, cfg: ArchConfig, e0: int, c0: int,
+            n_c: int):
+    """The routed experts' sum for tokens xf (n, d), routed as (gates,
+    ids), from the experts [e0, e0 + n_e) whose weights ``w`` holds (n_e of
+    them) and their capacity slots [c0, c0 + n_c) alone: ``moe_layer`` runs
+    the whole window, a rank of a mesh its own. No buffer outgrows the
+    window, (n, d) or one block of the combine (``_COMBINE_BLOCK``
+    tokens)."""
+    m = cfg.moe
+    n, d = xf.shape
+    k, dt = m.top_k, xf.dtype
+    n_e = w["w_up"].shape[0]
+    act = ACTS[cfg.act]
+
+    # --- capacity-based scatter dispatch into the window ---------------------
+    cap = capacity(n, m)
+    dest, keep = _dispatch(ids, m.n_experts, cap)
+    flat_ids = ids.reshape(-1)
+    slot = dest - flat_ids * cap
+    mine = keep & (flat_ids >= e0) & (flat_ids < e0 + n_e) & (slot >= c0) \
+        & (slot < c0 + n_c)
+    size = n_e * n_c
+    local = torch.where(mine, (flat_ids - e0) * n_c + slot - c0,
+                        torch.full_like(flat_ids, size))
+    # each slot's token, n where empty; indices repeat only at the drop
+    # slot, whose entry is discarded
+    tok = torch.full((size + 1,), n, dtype=local.dtype, device=xf.device)
+    tok.index_copy_(0, local,
+                    torch.arange(n * k, device=xf.device) // k)
+    tok = tok[:-1, None]
+    expert_in = torch.where(tok < n, xf[tok[:, 0].clamp(max=n - 1)], 0)
+    expert_in = expert_in.reshape(n_e, n_c, d)
+
+    # --- per-expert FFN, batched over the window's experts -------------------
+    if cfg.gated:
+        h = act(torch.bmm(expert_in, w["w_gate"]))
+        h = h * torch.bmm(expert_in, w["w_up"])
+    else:
+        h = act(torch.bmm(expert_in, w["w_up"]))
+    out = torch.bmm(h, w["w_down"]).reshape(size, d)
+
+    # --- combine: gather back + gate-weighted sum over k ---------------------
+    # a block of tokens at a time: the (tokens, k, d) gather stays
+    # block-sized
+    flat_out = torch.cat([out, out.new_zeros((1, d))])
+    local = local.reshape(n, k)
+    weight = (gates * mine.reshape(n, k)).to(dt)[..., None]
+
+    def combine(s):
+        return (flat_out[local[s]] * weight[s]).sum(dim=1)
+    if n <= _COMBINE_BLOCK:
+        return combine(slice(0, n))
+    y = xf.new_empty((n, d))
+    for s in range(0, n, _COMBINE_BLOCK):
+        rows = slice(s, s + _COMBINE_BLOCK)
+        y[rows] = combine(rows)
+    return y
+
+
+# tokens per block of the combine: 256 MiB of bf16 gather at d 4096, k 1
+_COMBINE_BLOCK = 32768
+
+
+def _moe_sharded(x, p: Params, cfg: ArchConfig):
+    """``moe_layer`` on a mesh: experts over ``model`` and capacity slots
+    over ``data`` (the reference's ("M", "D", None) pins on the expert
+    buffers). Each rank routes its own rows; the routes and the tokens are
+    gathered over the batch axes, so that every rank sees the capacity and
+    the drops of one device; each fills and runs only its own (experts,
+    capacity slots) window, and its contributions are summed by a
+    reduce-scatter back to the batch shards (and an all-reduce over
+    ``model``). Where the experts or the slots do not divide their axis
+    (qwen2-moe's 60 experts and 87,384 slots on 16), the windows are of
+    the rounded-up size and the last ones hold fewer or none: a slot past
+    the capacity is never filled, so the sum is the same."""
+    m = cfg.moe
+    b, t, d = x.shape
+    n, dt = b * t, x.dtype
+    mesh = x.device_mesh
+    x = placed(x, "B", None, None)
+    xf = x.reshape(n, d)
+    rows = list(xf.placements)
+    probs, gates, ids = local_call(
+        lambda xl, r: _route(xl, {"router": r}, m), (rows, rows, rows), xf,
+        placed(p["router"], None, None))
+    probs, gates, ids = (placed(a, None, None) for a in (probs, gates, ids))
+    xg = placed(xf, None, None)
+    w = {k: placed(p[k].to(dt), "M", None, None) for k in _EXPERTS if k in p}
+    n_model, n_data = mesh_size(mesh, "model"), mesh_size(mesh, "data")
+    e_split = sharded_on(w["w_up"])        # whole local experts
+    n_e = -(-m.n_experts // n_model)
+    cap = capacity(n, m)
+    n_c = -(-cap // n_data)
+    e0 = local_rank(mesh, "model") * n_e
+    c0 = local_rank(mesh, "data") * n_c
+    n_c = max(0, min(n_c, cap - c0))
+    names = mesh.mesh_dim_names
+    y_pl = [Replicate()] * mesh.ndim
+    for axis, size in (("model", n_model), ("data", n_data)):
+        if size > 1:
+            y_pl[names.index(axis)] = Partial()
+    # every rank of the split axes computes the same aux: each states its
+    # share, so that its gradient is counted once (``local_call``)
+    shares = n_model * n_data
+
+    def routed(xl, wl, pl, gl, il):
+        if not e_split:                    # replicated: this rank's slice
+            wl = {k: v[e0:e0 + n_e] for k, v in wl.items()}
+        y = _routed(xl, wl, gl, il, cfg, e0, c0, n_c)
+        return y, _aux(pl, il, m) / shares
+
+    y, aux = local_call(routed, (y_pl, y_pl), xg, w, probs, gates, ids)
+    aux = placed(aux)
+    y = placed(y, "B", None)
     if m.shared_d_ff:
         y = y + ffnlib.ffn_apply(xf, p["shared"], gated=cfg.gated,
                                  act_name=cfg.act, impl=cfg.block_impl,

@@ -19,6 +19,10 @@ RG-LRU recurrence (per channel):
 It is a linear recurrence, so prefill runs a log-depth scan and decode the
 O(1) per-token update. The gates, the conv and Lambda are f32 leaves
 (``layers.F32_LEAVES``), and the hidden state ``h`` stays f32 in the cache.
+
+On a mesh the block runs on local shards (``_sharded``): the LRU width,
+the conv and the per-head gate blocks over ``model`` (each channel's
+recurrence is its own), ``w_out``'s product a partial sum over ``model``.
 """
 
 from __future__ import annotations
@@ -28,8 +32,12 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor
+
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import leaf_dtype, normal_leaf
+from repro_torch.runtime.actctx import (local_call, partial_on, placed,
+                                        resolve, sharded_on)
 
 Params = Dict[str, Any]
 _C = 8.0
@@ -151,6 +159,9 @@ def _gate_branch(x, p):
 
 def rglru_block(x, p: Params, cfg: ArchConfig) -> torch.Tensor:
     """Full-sequence recurrent block (prefill without a cache)."""
+    if isinstance(x, DTensor):
+        return _sharded(lambda xl, pl, _: (rglru_block(xl, pl, cfg), None),
+                        x, p)[0]
     rec = conv1d_causal(x @ p["w_in"].to(x.dtype), p["conv_w"], p["conv_b"])
     rec = rg_lru_scan(rec, p)
     return (_gate_branch(x, p) * rec) @ p["w_out"].to(x.dtype)
@@ -159,6 +170,9 @@ def rglru_block(x, p: Params, cfg: ArchConfig) -> torch.Tensor:
 def rglru_prefill(x, p: Params, cfg: ArchConfig, cache: Params):
     """Prefill: the full-sequence block and the final recurrent and conv
     state (a new cache)."""
+    if isinstance(x, DTensor):
+        return _sharded(lambda xl, pl, cl: rglru_prefill(xl, pl, cfg, cl),
+                        x, p, cache)
     gate = _gate_branch(x, p)
     rec_in = x @ p["w_in"].to(x.dtype)
     rec = conv1d_causal(rec_in, p["conv_w"], p["conv_b"])
@@ -171,6 +185,9 @@ def rglru_prefill(x, p: Params, cfg: ArchConfig, cache: Params):
 
 def rglru_decode(x, p: Params, cfg: ArchConfig, cache: Params):
     """One-token step: x (B, 1, D) -> (y, new cache)."""
+    if isinstance(x, DTensor):
+        return _sharded(lambda xl, pl, cl: rglru_decode(xl, pl, cfg, cl),
+                        x, p, cache)
     xt = x[:, 0]
     gate = _gate_branch(xt, p)
     rec = xt @ p["w_in"].to(x.dtype)
@@ -179,3 +196,41 @@ def rglru_decode(x, p: Params, cfg: ArchConfig, cache: Params):
     y_rec, h = rg_lru_step(rec, cache["h"], p)
     y = (gate * y_rec) @ p["w_out"].to(x.dtype)
     return y[:, None], {"h": h, "conv": conv_state.to(cache["conv"].dtype)}
+
+
+# LRU-width dim of each leaf, as ``sharding.py`` places it on ``model``
+_WIDTH_SPECS = {
+    "w_gate_br": (None, "M"), "w_in": (None, "M"), "w_out": ("M", None),
+    "conv_w": (None, "M"), "conv_b": ("M",), "w_a": ("M", None, None),
+    "b_a": ("M",), "w_x": ("M", None, None), "b_x": ("M",), "lambda": ("M",),
+}
+
+
+def _sharded(fn, x, p: Params, cache=None):
+    """``fn(x, p, cache) -> (y, new cache or None)`` on this rank's shards:
+    x batch-sharded and whole over ``model``, each weight's FSDP dim
+    gathered and its LRU width over ``model`` where every leaf's width
+    divides (else whole on every rank), the cache in the same layout. The
+    output is all-reduced over ``model``; the new cache stays sharded."""
+    dt = x.dtype
+    x = placed(x, "B", None, None)
+    w = {k: placed(v.to(dt) if k in ("w_gate_br", "w_in", "w_out") else v,
+                   *_WIDTH_SPECS[k]) for k, v in p.items()}
+    split = all(sharded_on(v) for v in w.values())
+    if not split:
+        w = {k: placed(v, *(None,) * v.dim()) for k, v in w.items()}
+    mesh = x.device_mesh
+    keys = () if cache is None else ("conv", "h")
+    state = {k: placed(cache[k], "B", *(None,) * (cache[k].dim() - 2),
+                       "M" if split else None) for k in keys}
+    out_pl = (partial_on(x) if split else list(x.placements),) + tuple(
+        resolve(mesh, cache[k].shape, ("B",) + (None,) * (cache[k].dim() - 2)
+                + ("M" if split else None,)) for k in keys)
+
+    def local(xl, pl, cl):
+        y, new = fn(xl, pl, cl if cache is not None else None)
+        return (y,) + tuple(new[k] for k in keys)
+
+    out = local_call(local, out_pl, x, w, state)
+    y = placed(out[0], "B", None, None)
+    return y, (dict(zip(keys, out[1:])) if cache is not None else None)

@@ -16,6 +16,11 @@ reference does. Prefill of more than 8 tokens runs the chunk-parallel WKV,
 shorter inputs (decode) the per-token update. The decay LoRA, the decay
 base, the bonus and ln_x are f32 leaves (``layers.F32_LEAVES``), and the
 WKV state ``S`` stays f32 in the cache.
+
+On a mesh both halves run on local shards: the time-mix whole over
+``model`` (its projections are data-sharded only, as the reference lays
+them out: 40 heads do not divide 16), the channel-mix with d_ff over
+``model``, its output a partial sum reduced at the residual.
 """
 
 from __future__ import annotations
@@ -23,11 +28,14 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import fused_ffn as ffnlib
 from repro_torch.kernels.ref import ACTS
 from repro_torch.models.layers import leaf_dtype, normal_leaf
+from repro_torch.runtime.actctx import (local_call, partial_on, placed,
+                                        resolve, sharded_on)
 
 Params = Dict[str, Any]
 DECAY_LORA = 64
@@ -196,6 +204,11 @@ def init_rwkv_cache(cfg: ArchConfig, batch: int, dtype=torch.bfloat16,
 
 def time_mix(x, p: Params, cfg: ArchConfig, cache=None):
     """(B, T, D) -> (y, new cache or None)."""
+    if isinstance(x, DTensor):
+        w = {k: placed(v, *(None,) * v.dim()) for k, v in p.items()
+             if k in _TIME_MIX}
+        return _sharded(lambda xl, pl, cl: time_mix(xl, pl, cfg, cl),
+                        x, w, cache, ("S", "x_tm"), partial=False)
     h, hd = cfg.n_rwkv_heads, cfg.rwkv_head_dim
     xs = _token_shift(x, None if cache is None else cache["x_tm"])
     r, k, v, g, w = _time_mix_inputs(x, xs, p, cfg)
@@ -217,6 +230,15 @@ def time_mix(x, p: Params, cfg: ArchConfig, cache=None):
 def channel_mix(x, p: Params, cfg: ArchConfig, cache=None):
     """Expand -> ReLU^2 -> project (+ receptance gate): the ungated FFN of
     ``core/fused_ffn.ffn_apply`` under ``cfg.block_impl``."""
+    if isinstance(x, DTensor):
+        dt = x.dtype
+        w = {"cm_mu": placed(p["cm_mu"], None, None),
+             "cm_r": placed(p["cm_r"].to(dt), None, None),
+             "cm_k": placed(p["cm_k"].to(dt), None, "M"),
+             "cm_v": placed(p["cm_v"].to(dt), "M", None)}
+        return _sharded(lambda xl, pl, cl: channel_mix(xl, pl, cfg, cl),
+                        x, w, cache, ("x_cm",),
+                        partial=sharded_on(w["cm_k"]))
     xs = _token_shift(x, None if cache is None else cache["x_cm"])
     dt = x.dtype
     mu = p["cm_mu"].to(dt)
@@ -229,3 +251,32 @@ def channel_mix(x, p: Params, cfg: ArchConfig, cache=None):
     new_cache = None if cache is None else {
         **cache, "x_cm": x[:, -1].to(cache["x_cm"].dtype)}
     return recept * y, new_cache
+
+
+_TIME_MIX = ("mu", "w_r", "w_k", "w_v", "w_g", "w_o", "decay_A", "decay_B",
+             "decay_base", "bonus_u", "ln_x")
+
+
+def _sharded(fn, x, w, cache, keys, *, partial: bool):
+    """``fn(x, w, cache) -> (y, new cache or None)`` on this rank's shards:
+    x batch-sharded and whole over ``model``, ``w`` already placed, the
+    cache leaves ``keys`` batch-sharded. ``partial``: y is a sum over
+    ``model`` (the channel-mix's d_ff), all-reduced here."""
+    x = placed(x, "B", None, None)
+    mesh = x.device_mesh
+    state = {} if cache is None else {
+        k: placed(cache[k], "B", *(None,) * (cache[k].dim() - 1))
+        for k in keys}
+    out_pl = (partial_on(x) if partial else list(x.placements),) + tuple(
+        resolve(mesh, state[k].shape, ("B",) + (None,) * (state[k].dim() - 1))
+        for k in state)
+
+    def local(xl, wl, cl):
+        y, new = fn(xl, wl, cl or None)
+        return (y,) + tuple(new[k] for k in state)
+
+    out = local_call(local, out_pl, x, w, state)
+    y = placed(out[0], "B", None, None)
+    if cache is None:
+        return y, None
+    return y, {**cache, **dict(zip(state, out[1:]))}

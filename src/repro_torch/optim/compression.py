@@ -22,8 +22,8 @@ Tree = Any
 def compress_state_init(params: Tree) -> Tree:
     """Error-feedback residuals, one f32 tensor per parameter."""
     return tree.map_leaves(
-        lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-        params)
+        lambda p: torch.zeros_like(p, dtype=torch.float32,
+                                   requires_grad=False), params)
 
 
 def _q_dq(x: torch.Tensor) -> torch.Tensor:

@@ -17,8 +17,10 @@ implements that control plane:
 * ``FailureInjector`` — deterministic fault injection for tests/examples.
 
 Where the reference waits with ``jax.block_until_ready``, the port
-synchronizes the device of the metrics; the restore target is a device
-(one card), where the reference takes target shardings.
+synchronizes the device of the metrics. The restore target is a device,
+or target shardings (a spec tree and a mesh) as in the reference; in a
+process group every rank finds the same latest checkpoint
+(``CheckpointManager.latest`` holds the ranks at a barrier).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.checkpoint import CheckpointManager, latest_step
+from repro_torch.checkpoint import CheckpointManager
 
 
 class Watchdog:
@@ -98,6 +100,8 @@ class TrainDriver:
       template_fn: () -> a TrainState template to restore into (meta tensors
         will do: ``steps.abstract_train_state``); default ``init_state_fn``.
       device: where a restored state goes; default the template's.
+      state_shardings, mesh: on a mesh, the restored state's spec tree
+        (``steps.train_state_shardings``) and the mesh it is placed on.
     """
 
     def __init__(self, step_fn: Callable, init_state_fn: Callable,
@@ -107,7 +111,8 @@ class TrainDriver:
                  device: Any = None,
                  watchdog: Optional[Watchdog] = None,
                  failure_injector: Optional[FailureInjector] = None,
-                 max_restarts: int = 3):
+                 max_restarts: int = 3,
+                 state_shardings: Any = None, mesh: Any = None):
         self.step_fn = step_fn
         self.init_state_fn = init_state_fn
         self.batch_at = batch_at
@@ -117,10 +122,14 @@ class TrainDriver:
         self.watchdog = watchdog or Watchdog()
         self.injector = failure_injector
         self.max_restarts = max_restarts
+        self.state_shardings = state_shardings
+        self.mesh = mesh
 
     def _restore_or_init(self):
-        if self.ckpt is not None and latest_step(self.ckpt.directory) is not None:
-            state = self.ckpt.restore_latest(self.template_fn(), self.device)
+        if self.ckpt is not None and self.ckpt.latest() is not None:
+            state = self.ckpt.restore_latest(
+                self.template_fn(), self.device,
+                shardings=self.state_shardings, mesh=self.mesh)
             start = int(state.step)
             return state, start
         return self.init_state_fn(), 0

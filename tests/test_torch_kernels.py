@@ -420,3 +420,59 @@ def test_model_gradients_through_the_kernels_on_the_card():
                 before[0] + n, before[1] + n)
     for g, w in zip(*grads.values()):
         _grad_close(g, w, 2e-5)
+
+
+@pytest.mark.gpu
+def test_custom_ops_on_the_card_are_their_launchers():
+    """``repro_torch::fused_ffn`` and ``::flash_attention`` on CUDA tensors:
+    ``torch.library.opcheck`` passes, and each op's output equals the
+    launcher it wraps (one launch per call)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the custom ops' CUDA impls launch "
+                    "the hand kernels")
+    from repro_torch.kernels import flash_attention, fused_ffn
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = (torch.randn((64, 256), generator=gen, device="cuda")).bfloat16()
+    wg, wu = ((torch.randn((256, 512), generator=gen, device="cuda")
+               * 256 ** -0.5).bfloat16() for _ in range(2))
+    wd = (torch.randn((512, 256), generator=gen, device="cuda")
+          * 512 ** -0.5).bfloat16()
+    ffn_op = torch.ops.repro_torch.fused_ffn.default
+    torch.library.opcheck(ffn_op, (x, wg, wu, wd, "silu"))
+    before = fused_ffn.LAUNCHES
+    got = ffn_op(x, wg, wu, wd, "silu")
+    assert fused_ffn.LAUNCHES == before + 1
+    assert torch.equal(got, fused_ffn.fused_ffn_cuda(x, wg, wu, wd,
+                                                     act="silu"))
+    q = torch.randn((2, 128, 8, 64), generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn((2, 128, 2, 64), generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    fa_op = torch.ops.repro_torch.flash_attention.default
+    torch.library.opcheck(fa_op, (q, k, v, True, 48, 50.0, None))
+    before = flash_attention.LAUNCHES
+    got = fa_op(q, k, v, True, 48, 50.0, None)
+    assert flash_attention.LAUNCHES == before + 1
+    assert torch.equal(got, flash_attention.flash_attention_cuda(
+        q, k, v, causal=True, window=48, softcap=50.0))
+
+
+@pytest.mark.gpu
+def test_fused_ffn_pads_a_d_ff_shard_the_kernel_refuses():
+    """d_ff 856 (glm4-9b's over 16 model ranks) is no multiple of 16: the
+    launch goes through the op with zero-padded weights, one launch, equal
+    to the plain version on the unpadded weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the padded launch runs the FFN kernel")
+    from repro_torch.kernels import fused_ffn
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    t, d, f = 96, 256, 856
+    x = torch.randn((t, d), generator=gen, device="cuda").bfloat16()
+    wg, wu = ((torch.randn((d, f), generator=gen, device="cuda")
+               * d ** -0.5).bfloat16() for _ in range(2))
+    wd = (torch.randn((f, d), generator=gen, device="cuda")
+          * f ** -0.5).bfloat16()
+    before = fused_ffn.LAUNCHES
+    got = fused_ffn.fused_ffn(x, wg, wu, wd, act="silu")
+    assert fused_ffn.LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    _close(got, ref.fused_ffn_ref(x, wg, wu, wd, act="silu"), 2e-2)
