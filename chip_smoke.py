@@ -17,7 +17,8 @@ rwkv6-3b served) through the same two kernels, training: gradients
 through both kernels and internvl2-1b trained at full width through
 ``launch.train`` with a restart from its checkpoint, and the multi-device
 runtime (DTensor serve and train steps on a one-card mesh) with the dry
-run of four full-size cells. Phases:
+run of five full-size cells, and the dry run's live estimate held to the
+card's allocator on two train steps. Phases:
 
 1. the card's name and power limit (nvidia-smi); no CUDA device -> fail;
 2. build every kernel from src/repro_torch/kernels/csrc (one nvcc each, all
@@ -198,11 +199,20 @@ run of four full-size cells. Phases:
    train step on the (1, 1) mesh against the meshless step: losses within
    1e-5 relative (bit-equal reported), 24 + 24 flash and FFN launches a
    step inside ``local_map``;
-33. the dry run (``launch.dryrun.run_cell``) of four full-size cells under
+33. the dry run (``launch.dryrun.run_cell``) of five full-size cells under
    the fake process group on fake ``cuda`` tensors: qwen2-72b train_4k on
-   (16, 16), llama4-scout decode_32k on (2, 16, 16), gemma2-9b prefill_32k
-   and rwkv6-3b long_500k on (16, 16), each ``ok`` with its per-device
-   bytes, FLOPs over model FLOPs and the bound on the H100's rates.
+   (16, 16), llama4-scout decode_32k on (2, 16, 16), gemma2-9b prefill_32k,
+   gemma2-9b train_4k and rwkv6-3b long_500k on (16, 16), each ``ok`` and
+   fitting one card, with its per-device argument and live bytes, FLOPs
+   over model FLOPs and the bound on the H100's rates;
+34. the dry run's live estimate against the card: one real train step of
+   rwkv6-3b and of gemma2-9b at full width and two pattern units, at a
+   train_4k microbatch's rows per device x 4096 tokens (gemma2 cut to 2
+   rows: the meshless loss's whole-vocab f32 tensors), on the meshless
+   path through the kernels; the card's peak allocated bytes over the
+   step's arguments against ``OpCostMode.peak_live_bytes`` of the same step
+   on fake ``cuda`` tensors, both printed with their ratio; an estimate
+   below 0.8 of the card's reading fails.
 
 The last stdout line is {"ok": true, "device": {...}}; the line before it is
 the {"kernels": [...]} record, whose DSC rows also carry the kernel's
@@ -243,7 +253,7 @@ from repro_torch.core.dsc import DSCBlockSpec as S  # noqa: E402
 from repro_torch.core.fusion import Schedule  # noqa: E402
 from repro_torch import tree  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
-from repro_torch.configs.base import InputShape  # noqa: E402
+from repro_torch.configs.base import SHAPES_BY_NAME, InputShape  # noqa: E402
 from repro_torch.data import SyntheticLMData  # noqa: E402
 from repro_torch.kernels import (build, flash_attention, fused_dsc,  # noqa: E402
                                  fused_ffn, ops, ref)
@@ -1316,8 +1326,8 @@ class Checked:
         self.saved = (ops.mha, ops.ffn)
         mha, ffn = self.saved
 
-        def mha_checked(q, k, v, *, n_kv_heads, **kw):
-            out = mha(q, k, v, n_kv_heads=n_kv_heads, **kw)
+        def mha_checked(q, k, v, *, n_kv_heads, block=1024, **kw):
+            out = mha(q, k, v, n_kv_heads=n_kv_heads, block=block, **kw)
             self._note("flash", close(out, ref.mha_ref(q, k, v, **kw),
                                       self.tol,
                                       f"model flash call {tuple(q.shape)}"))
@@ -1364,8 +1374,8 @@ class PlainOps:
 
     def __enter__(self):
         self.saved = (ops.mha, ops.ffn)
-        ops.mha = lambda q, k, v, *, n_kv_heads, **kw: ref.mha_ref(q, k, v,
-                                                                   **kw)
+        ops.mha = lambda q, k, v, *, n_kv_heads, block=1024, **kw: \
+            ref.mha_ref(q, k, v, **kw)
         ops.ffn = ref.fused_ffn_ref
         return self
 
@@ -2357,7 +2367,8 @@ def hold_calls(calls, tol, what, gen):
             fn, plain, plain_kw = ops.ffn, ref.fused_ffn_ref, kw
         else:
             fn, plain = ops.mha, ref.mha_ref
-            plain_kw = {k: v for k, v in kw.items() if k != "n_kv_heads"}
+            plain_kw = {k: v for k, v in kw.items()
+                        if k not in ("n_kv_heads", "block")}
         live = [i for i, a in enumerate(args) if a is not None]
         a_k = [None if a is None else a.clone().requires_grad_()
                for a in args]
@@ -2681,6 +2692,7 @@ def phase_train_remat(device):
 DIST_DRYRUN_CELLS = (("qwen2-72b", "train_4k", "single"),
                      ("llama4-scout-17b-a16e", "decode_32k", "multi"),
                      ("gemma2-9b", "prefill_32k", "single"),
+                     ("gemma2-9b", "train_4k", "single"),
                      ("rwkv6-3b", "long_500k", "single"))
 DIST_TRAIN_STEPS = 2
 DIST_REPS = 10
@@ -2866,7 +2878,7 @@ def phase_sharded_train(device):
 
 
 def phase_dryrun():
-    """Phase 33: four full-size cells of the dry run, each under the fake
+    """Phase 33: five full-size cells of the dry run, each under the fake
     process group of its mesh and on fake tensors, so the custom ops' fake
     impls and flop formulas stand in for the kernels."""
     out = Path(__file__).resolve().parent / "build" / "dryrun_smoke"
@@ -2905,6 +2917,127 @@ def phases_dist(device):
     took = time.perf_counter() - t0
     say(f"[dist] phases 31-33: {took:.2f} s")
     return took
+
+
+# --- phase 34: the dry run's live estimate against the card's allocator ----
+
+MEMORY_ARCHS = ("rwkv6-3b", "gemma2-9b")
+MEMORY_UNITS = 2
+MEMORY_SEQ = 4096
+MEMORY_DATA_SHARDS = 16           # the (16, 16) mesh's batch shards
+MEMORY_FLOOR = 0.8                # estimate / card below this: optimistic
+# rows below one train_4k microbatch's per-device rows, and why
+MEMORY_ROW_CUT = {
+    "gemma2-9b": (2, "the meshless loss holds the whole 256,000-word vocab: "
+                     "four (B T, V) f32 tensors at its peak, 15.6 GiB each "
+                     "at B 4, which with the 29.4 GiB of f32 params, m and "
+                     "v do not fit 80 GB (the (16, 16) mesh splits the "
+                     "vocab 16 ways)"),
+}
+
+
+def memory_check_shape(name):
+    """(``name``'s config at ``MEMORY_UNITS`` pattern units, the step's
+    InputShape, the microbatch's rows on the mesh, the cut's reason or
+    None)."""
+    cfg = registry.get(name)
+    cfg = dataclasses.replace(cfg, n_layers=MEMORY_UNITS * len(cfg.pattern),
+                              attn_impl="kernel", block_impl="fused")
+    train4k = SHAPES_BY_NAME["train_4k"]
+    rows = (train4k.global_batch // MEMORY_DATA_SHARDS
+            // cfg.microbatch_for("train_4k"))
+    cut_rows, why = MEMORY_ROW_CUT.get(name, (rows, None))
+    shape = InputShape("memory_check", MEMORY_SEQ, min(rows, cut_rows),
+                       "train")
+    return cfg, shape, rows, why
+
+
+def estimated_step(cfg, shape, train, device_type):
+    """The dry run's count of one meshless train step on fake tensors of
+    ``device_type``: (its ``OpCostMode``, the state's and batch's bytes)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.roofline.op_cost import OpCostMode
+    dev = torch.device(device_type)
+    with FakeTensorMode():
+        params = dryrun._fake_leaves(lm.abstract_params(cfg, torch.float32),
+                                     dev)
+        state = steps_mod.train_state(params, train)
+        batch = steps_mod.abstract_batch(cfg, shape, dev)
+        step = steps_mod.build_train_step(cfg, train, shape, dev)
+        args = dryrun._local_bytes(state) + dryrun._local_bytes(batch)
+        with OpCostMode() as mode:
+            step(state, batch)
+    return mode, args
+
+
+def phase_memory_check(device):
+    """Phase 34: one real train step of each of ``MEMORY_ARCHS`` at full
+    width and ``MEMORY_UNITS`` pattern units, at a train_4k microbatch's
+    rows per device x 4096 tokens (cut where ``MEMORY_ROW_CUT`` says), on
+    the meshless one-card path through the kernels: the card's peak
+    allocated bytes over what the step's arguments hold
+    (``max_memory_allocated`` after ``reset_peak_memory_stats``, less
+    ``memory_allocated`` before the step), against ``OpCostMode``'s
+    ``peak_live_bytes`` for the same step on fake tensors. Fails where the
+    estimate is below ``MEMORY_FLOOR`` of the card's reading."""
+    t0 = time.perf_counter()
+    train = steps_mod.TrainSpec(peak_lr=3e-4, warmup_steps=1,
+                                total_steps=10)
+    card = card_line()
+    rows_out = {}
+    for name in MEMORY_ARCHS:
+        cfg, shape, rows, why = memory_check_shape(name)
+        t1 = time.perf_counter()
+        mode, arg_bytes = estimated_step(cfg, shape, train,
+                                         dryrun.fake_device_type())
+        est_s = time.perf_counter() - t1
+        est = mode.peak_live_bytes
+        top = sorted(mode.peak_live_by.items(), key=lambda kv: -kv[1][0])[:3]
+        state = steps_mod.init_train_state(cfg, 0, train, device)
+        gen = torch.Generator(device=device).manual_seed(34)
+        batch = {k: torch.randint(0, cfg.vocab, (shape.global_batch,
+                                                 shape.seq_len),
+                                  generator=gen, device=device,
+                                  dtype=torch.int32)
+                 for k in ("tokens", "labels")}
+        step = steps_mod.build_train_step(cfg, train, shape, device)
+        state, m = step(state, batch)             # warm: allocator, caches
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_lm_counts()
+        t1 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t1) * 1e3
+        counts = lm_counts()
+        used = torch.cuda.max_memory_allocated() - held
+        check(np.isfinite(float(m["loss"])), f"{name}: loss {m['loss']}")
+        check(counts == train_launches(cfg),
+              f"{name}: the step launched (flash, ffn) {counts}, expected "
+              f"{train_launches(cfg)}")
+        ratio = est / used
+        rows_out[name] = (est, used, ratio)
+        say(f"[memory] {name} at {cfg.n_layers} layers ({MEMORY_UNITS} "
+            f"units), full width, B {shape.global_batch} x T "
+            f"{shape.seq_len} (a train_4k microbatch is {rows} rows a "
+            f"device" + (f"; cut: {why}" if why else "") + f"), meshless, "
+            f"kernels (flash, ffn) {counts}: card peak over arguments "
+            f"{used:,} B ({used / 2**30:.3f} GiB; arguments {held:,} B held, "
+            f"{arg_bytes:,} B counted); estimate {est:,} B "
+            f"({est / 2**30:.3f} GiB, {est_s:.1f} s on fake "
+            f"{dryrun.fake_device_type()} tensors); estimate / card "
+            f"{ratio:.4f}; step {step_ms:.3f} ms; {card}")
+        say(f"[memory]   the estimate's peak: " + "; ".join(
+            f"{b / 2**30:.3f} GiB x{n} {k}" for k, (b, n) in top))
+        del state, step, m, batch
+        torch.cuda.empty_cache()
+    for name, (est, used, ratio) in rows_out.items():
+        check(ratio >= MEMORY_FLOOR,
+              f"{name}: the live estimate {est:,} B is {ratio:.4f} of the "
+              f"card's {used:,} B, below {MEMORY_FLOOR}: fits is optimistic")
+    say(f"[memory] phase 34: {time.perf_counter() - t0:.2f} s")
+    return rows_out
 
 
 def main() -> int:
@@ -2988,6 +3121,7 @@ def main() -> int:
                 "per_step_by_remat": {m: c[i] for m, c in by_remat.items()}}
     say(f"[train] phases 28-30: {time.perf_counter() - t0:.2f} s")
     phases_dist(device)
+    phase_memory_check(device)
     say(card_line())
     say("kernels " + json.dumps(entries))
     say(json.dumps({"kernels": entries}))

@@ -5,7 +5,7 @@
 
 Phase 2 (build every kernel), then phases 31-33: gemma2-9b served through
 the mesh serving steps on a one-card (1, 1) mesh against the eager path,
-internvl2-1b's mesh train step against the meshless one, and four
+internvl2-1b's mesh train step against the meshless one, and five
 full-size cells of the dry run on fake ``cuda`` tensors. ``--gpu-tests``
 first runs the card's tests of the kernels and their custom ops (``pytest
 --noconftest -m gpu tests/test_torch_kernels.py``). It fails as

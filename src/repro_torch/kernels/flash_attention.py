@@ -21,11 +21,11 @@ products over the pairs the masks leave, which the dry run's cost model
 counts.
 
 ``flash_attention`` is the launch with a gradient (``FlashAttention``): the
-forward launches the kernel and saves only q, k and v, the backward
-recomputes the attention through ``ref.mha_ref`` under grad and returns that
-graph's gradients, the reference's arithmetic (it trains through XLA's
-autodiff of its plain attention). No (Tq, Tk) score matrix is stored between
-the passes.
+forward launches the kernel and saves only q, k and v, the backward is
+``ref.mha_grads_blocked``, the gradient of ``ref.mha_ref`` in closed form a
+block of ``block`` queries at a time (the reference trains through XLA's
+autodiff of its blocked attention, ``attn_chunk`` keys a block). No
+(Tq, Tk) matrix exists in either pass.
 
 ``LAUNCHES`` counts the kernel launches this wrapper made, so a run can show
 that its main path went through the kernel.
@@ -227,34 +227,38 @@ def flash_flops(q_shape, k_shape, v_shape, causal, window, softcap,
 
 
 class FlashAttention(torch.autograd.Function):
-    """``flash_attention_cuda`` with a gradient through the plain version."""
+    """``flash_attention_cuda`` with a gradient through the plain version,
+    ``block`` queries at a time."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap, sm_scale):
+    def forward(ctx, q, k, v, causal, window, softcap, sm_scale, block):
         ctx.kw = dict(causal=causal, window=window, softcap=softcap,
                       sm_scale=sm_scale)
+        ctx.block = block
         ctx.save_for_backward(q, k, v)
         return _launch(q, k, v, **ctx.kw)
 
     @staticmethod
     def backward(ctx, grad_o):
-        def plain(q, k, v):
-            return ref.mha_ref(q, k, v, **ctx.kw)
-        return ref.plain_grads(plain, ctx.saved_tensors,
-                               ctx.needs_input_grad[:3], grad_o) + (None,) * 4
+        grads = ref.mha_grads_blocked(*ctx.saved_tensors, grad_o,
+                                      block=ctx.block, **ctx.kw)
+        return tuple(g if need else None for g, need in
+                     zip(grads, ctx.needs_input_grad)) + (None,) * 5
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None,
-                    sm_scale: Optional[float] = None) -> torch.Tensor:
+                    sm_scale: Optional[float] = None,
+                    block: int = 1024) -> torch.Tensor:
     """``flash_attention_cuda``'s launch, differentiable in q, k and v:
     through ``FlashAttention`` when grad is on and an input requires it,
-    else the launch alone (serving)."""
+    else the launch alone (serving). ``block``: the backward's query
+    block."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, window, softcap,
-                                    sm_scale)
+                                    sm_scale, block)
     return _launch(q, k, v, causal=causal, window=window, softcap=softcap,
                    sm_scale=sm_scale)
 

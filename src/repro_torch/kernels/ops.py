@@ -6,8 +6,8 @@ CPU tensor goes to the kernel's plain PyTorch version. Model code calls
 these wrappers, never the kernels directly. The flash and FFN launches are
 differentiable: under grad the kernel still runs the forward, and the
 backward goes through the plain version (``fused_ffn.FusedFFN``,
-``flash_attention.FlashAttention``). The DSC kernel is int8 inference and
-has no gradient.
+``flash_attention.FlashAttention``, the latter ``block`` queries at a
+time). The DSC kernel is int8 inference and has no gradient.
 
 ``ffn``, ``attention`` and ``mha`` also take DTensors (a mesh): each rank
 runs the same call on its local shards through ``local_map``, so the
@@ -80,11 +80,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         n_kv_heads: int, causal: bool = True, window: Optional[int] = None,
         softcap: Optional[float] = None,
-        sm_scale: Optional[float] = None) -> torch.Tensor:
+        sm_scale: Optional[float] = None, block: int = 1024) -> torch.Tensor:
     """Multi-head GQA attention: (B, T, H, d) q, (B, T, Hkv, d) k/v.
 
     Query head ``h`` attends with KV head ``h // (H // Hkv)``. The kernel
     indexes that head in place; the plain version repeats K and V.
+    ``block``: the queries a block of the kernel's backward takes (the
+    config's ``attn_chunk``).
     """
     if k.shape[2] != n_kv_heads or v.shape[2] != n_kv_heads:
         raise ValueError(f"k/v have {k.shape[2]}/{v.shape[2]} heads, "
@@ -93,10 +95,11 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               sm_scale=sm_scale)
     if isinstance(q, DTensor):
         return _local(lambda q, k, v: mha(q, k, v, n_kv_heads=k.shape[2],
-                                          **kw), q, None, q, k, v)
+                                          block=block, **kw), q, None,
+                      q, k, v)
     if _dsc.on_card(q):
         return _fa.flash_attention(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), **kw)
+                                   v.contiguous(), block=block, **kw)
     if q.device.type == "cpu":
         return ref.mha_ref(q, k, v, **kw)
     raise ValueError(f"mha: unsupported device {q.device}")

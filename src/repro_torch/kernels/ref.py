@@ -3,9 +3,10 @@
 Each function is the semantic ground truth its kernel is held against: the
 CPU tests compare it with the JAX package, and ``chip_smoke.py`` compares
 the CUDA kernel with it on the card. It runs on any device.
-``plain_grads`` is the flash and FFN kernels' backward: the gradient of
-their plain version (``mha_ref``, ``fused_ffn_ref``) recomputed under
-grad.
+``plain_grads`` is the FFN kernel's backward: the gradient of its plain
+version (``fused_ffn_ref``) recomputed under grad. ``mha_grads_blocked``
+is the flash kernel's: the gradient of ``mha_ref`` in closed form, one
+block of queries at a time, so that no (Tq, Tk) matrix exists.
 """
 
 from __future__ import annotations
@@ -137,6 +138,83 @@ def mha_ref(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     o = attention_ref(qf, kf, vf, causal=causal, window=window,
                       softcap=softcap, sm_scale=sm_scale)
     return o.reshape(b, h, tq, d).transpose(1, 2)
+
+
+def _visible(q_pos, k_pos, causal: bool, window: Optional[int]):
+    """``attention_ref``'s mask: query i sees key j where j <= i (causal)
+    and i - j < window."""
+    mask = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        mask &= (q_pos[:, None] - k_pos[None, :]) < window
+    return mask
+
+
+def mha_grads_blocked(q, k, v, grad_o, *, causal: bool = True,
+                      window: Optional[int] = None,
+                      softcap: Optional[float] = None,
+                      sm_scale: Optional[float] = None, block: int = 1024
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``mha_ref`` (dq, dk, dv in q's dtype) for the output
+    gradient ``grad_o``, a block of ``block`` queries at a time, products in
+    f32 (f64 for f64 inputs).
+
+    Each block scores its queries against the keys its masks can reach (a
+    causal block ends at its last query, a window starts ``window - 1``
+    before its first), so no tensor is larger than (B H, block, Tk). The
+    query heads of one KV head are scored together against it, so K and V
+    are never repeated. Per block, as autograd differentiates
+    ``attention_ref``:
+
+        p  = softmax(mask(cap(s))),  s = scale q k^T   (rows with no key: 0)
+        dv += p^T dO;  dp = dO v^T;  ds = p (dp - rowsum(p dp))
+        ds *= 1 - tanh^2(s / softcap)   (the softcap's chain rule)
+        dq = scale ds k;  dk += scale ds^T q
+    """
+    b, tq, h, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = float(sm_scale if sm_scale is not None else d ** -0.5)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    # (B, Hkv, G, T, d): query head h = kv * G + i reads KV head kv
+    qf = q.to(acc).reshape(b, tq, hkv, g, d).permute(0, 2, 3, 1, 4)
+    of = grad_o.to(acc).reshape(b, tq, hkv, g, d).permute(0, 2, 3, 1, 4)
+    kf = k.to(acc).transpose(1, 2)                    # (B, Hkv, Tk, d)
+    vf = v.to(acc).transpose(1, 2)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    pos = torch.arange(max(tq, tk), device=q.device)
+    for lo in range(0, tq, block):
+        hi = min(lo + block, tq)
+        k_lo = 0 if window is None else max(0, lo - window + 1)
+        k_hi = min(tk, hi) if causal else tk
+        if k_lo >= k_hi:                  # no query here sees any key
+            continue
+        qb, ob = qf[:, :, :, lo:hi], of[:, :, :, lo:hi]
+        kb, vb = kf[:, :, k_lo:k_hi], vf[:, :, k_lo:k_hi]
+        s = torch.einsum("bngqd,bnkd->bngqk", qb, kb) * scale
+        if softcap is not None:
+            t = torch.tanh(s / softcap)
+            s = softcap * t
+        mask = _visible(pos[lo:hi], pos[k_lo:k_hi], causal, window)
+        s = torch.where(mask, s, torch.full_like(s, -1e30))
+        p = torch.softmax(s, dim=-1)
+        p = torch.where(mask.any(dim=-1, keepdim=True), p,
+                        torch.zeros_like(p))
+        dv[:, :, k_lo:k_hi] += torch.einsum("bngqk,bngqd->bnkd", p, ob)
+        dp = torch.einsum("bngqd,bnkd->bngqk", ob, vb)
+        ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+        if softcap is not None:
+            ds = ds * (1.0 - t * t)
+        ds = ds * scale
+        dq[:, :, :, lo:hi] = torch.einsum("bngqk,bnkd->bngqd", ds, kb)
+        dk[:, :, k_lo:k_hi] += torch.einsum("bngqk,bngqd->bnkd", ds, qb)
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(b, tq, h, d)
+    return (dq.to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
 
 
 def plain_grads(fn: Callable, inputs: Sequence[Optional[torch.Tensor]],

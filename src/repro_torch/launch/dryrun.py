@@ -29,6 +29,8 @@ Usage:
   python -m repro_torch.launch.dryrun --all --mesh both        # grid
   python -m repro_torch.launch.dryrun --all --arch glm4-9b   # one arch
   python -m repro_torch.launch.dryrun --list    # enumerate cells
+  python -m repro_torch.launch.dryrun --arch gemma2-9b --shape train_4k \\
+      --mesh single --breakdown   # + top FLOPs, bytes, live at the peak
 
 Results are written as JSON to
 results/dryrun_torch/<arch>__<shape>__<mesh>.json (one file per cell, the
@@ -55,6 +57,7 @@ from repro_torch.configs import registry
 from repro_torch.configs.base import SHAPES_BY_NAME
 from repro_torch.launch.mesh import fake_process_group, make_production_mesh
 from repro_torch.models import lm
+from repro_torch.roofline import breakdown
 from repro_torch.roofline.analysis import (HW_H100, roofline_from_cost,
                                            summarize)
 from repro_torch.roofline.op_cost import OpCostMode
@@ -136,7 +139,8 @@ def model_flops(cfg, shape) -> float:
 
 def run_cell(arch: str, shape_name: str, mesh_name: str,
              out_dir: str = RESULTS_DIR, verbose: bool = True,
-             cfg_override=None) -> Optional[dict]:
+             cfg_override=None, show_breakdown: bool = False
+             ) -> Optional[dict]:
     cell = registry.cell_for(arch, SHAPES_BY_NAME[shape_name])
     os.makedirs(out_dir, exist_ok=True)
     out_path = os.path.join(out_dir, f"{arch}__{shape_name}__{mesh_name}.json")
@@ -196,6 +200,8 @@ def run_cell(arch: str, shape_name: str, mesh_name: str,
                   + ("" if rec["fits"] else
                      f" DOES NOT FIT in {HW_H100['hbm_bytes'] / 2**30:.1f}"
                      f" GiB"))
+        if show_breakdown:
+            breakdown.print_top(mode)
     except Exception as e:                            # noqa: BLE001
         rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
                "status": "error", "error": repr(e),
@@ -217,6 +223,9 @@ def main(argv=None):
                     help="every cell (of --arch, where given)")
     ap.add_argument("--list", action="store_true")
     ap.add_argument("--out", default=RESULTS_DIR)
+    ap.add_argument("--breakdown", action="store_true",
+                    help="print each cell's top FLOP, byte and collective "
+                         "contributors and what was live at its peak")
     ap.add_argument("--skip-done", action="store_true",
                     help="skip cells whose result JSON already exists and is ok")
     args = ap.parse_args(argv)
@@ -244,7 +253,8 @@ def main(argv=None):
                 if json.load(f).get("status") in ("ok", "n/a"):
                     print(f"[dryrun] {arch}/{shp}/{m} cached, skipping")
                     continue
-        rec = run_cell(arch, shp, m, out_dir=args.out)
+        rec = run_cell(arch, shp, m, out_dir=args.out,
+                       show_breakdown=args.breakdown)
         failed += rec.get("status") == "error"
     return 1 if failed else 0
 

@@ -213,12 +213,13 @@ def attention_fused(q, k, v, q_pos, k_pos, *, causal, window, softcap,
 
 
 def attention_kernel(q, k, v, q_pos, k_pos, *, causal, window, softcap,
-                     sm_scale, kv_len=None):
+                     sm_scale, kv_len=None, block: int = 1024):
     """The flash-attention kernel (contiguous positions only — the
-    prefill path)."""
+    prefill path); its backward takes ``block`` queries at a time."""
     del q_pos, k_pos, kv_len
     return kops.mha(q, k, v, n_kv_heads=k.shape[2], causal=causal,
-                    window=window, softcap=softcap, sm_scale=sm_scale)
+                    window=window, softcap=softcap, sm_scale=sm_scale,
+                    block=block)
 
 
 ATTN_IMPLS = {
@@ -308,6 +309,8 @@ def _attend(q, k, v, positions, cfg: ArchConfig, *, local: bool):
               sm_scale=cfg.head_dim_ ** -0.5)
     if cfg.attn_impl == "fused":
         kw["block_k"] = cfg.attn_chunk
+    elif cfg.attn_impl == "kernel":
+        kw["block"] = cfg.attn_chunk
     return impl(q, k, v, positions[0], positions[0], **kw)
 
 

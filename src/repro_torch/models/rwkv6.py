@@ -153,7 +153,12 @@ def _wkv_chunk_parallel(r, k, v, w, u, state0, *, chunk: int = 32):
 
     Every exponent is a difference of a nondecreasing log-decay cumsum with
     s < t, so every exp() argument is <= 0. Same arguments and results as
-    ``_wkv_scan``."""
+    ``_wkv_scan``.
+
+    Under grad each chunk runs checkpointed, as the reference's
+    ``jax.checkpoint`` of its chunk body: the backward keeps only the
+    chunk-boundary states and recomputes one chunk's (B, L, L, H, K)
+    intermediates at a time."""
     b, t, h, dk = r.shape
     pad = (-t) % chunk
     r, k, v, w = (a.float() for a in (r, k, v, w))
@@ -164,9 +169,8 @@ def _wkv_chunk_parallel(r, k, v, w, u, state0, *, chunk: int = 32):
     before = torch.arange(chunk, device=r.device)
     mask = (before[:, None] > before[None, :])[None, :, :, None, None]
     eye = torch.eye(chunk, device=r.device)[None, :, :, None]
-    S, ys = state0, []
-    for lo in range(0, t + pad, chunk):
-        rc, kc, vc, wc = (a[:, lo:lo + chunk] for a in (r, k, v, w))
+
+    def chunk_body(S, rc, kc, vc, wc):
         log_w = torch.log(torch.clamp_min(wc, 1e-38))
         lc = torch.cumsum(log_w, dim=1) - log_w      # exclusive cumsum lc_t
         lc_next = lc + log_w                          # inclusive (lc_{t+1})
@@ -185,9 +189,17 @@ def _wkv_chunk_parallel(r, k, v, w, u, state0, *, chunk: int = 32):
         att = att + diag[:, :, None] * eye
         y_intra = torch.einsum("btsh,bshv->bthv", att, vc)
         k_dec = kc * torch.exp(lc_end[:, None] - lc_next)
-        S = torch.exp(lc_end)[..., :, None] * S \
+        S_new = torch.exp(lc_end)[..., :, None] * S \
             + torch.einsum("blhk,blhv->bhkv", k_dec, vc)
-        ys.append(y_inter + y_intra)
+        return S_new, y_inter + y_intra
+
+    grads = torch.is_grad_enabled() and any(
+        a.requires_grad for a in (r, k, v, w, u, state0))
+    body = ffnlib.checkpointed(chunk_body) if grads else chunk_body
+    S, ys = state0, []
+    for lo in range(0, t + pad, chunk):
+        S, y = body(S, *(a[:, lo:lo + chunk] for a in (r, k, v, w)))
+        ys.append(y)
     return torch.cat(ys, dim=1)[:, :t], S
 
 

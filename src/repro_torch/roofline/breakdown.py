@@ -3,7 +3,8 @@
 The perf loop needs to know *which ops* dominate each roofline term.
 ``OpCostMode`` keeps a per-op ledger (scaled by ``trips``), keyed by op
 and result shape so that repeated instances aggregate; ``breakdown``
-returns it by category and ``print_top`` shows the top contributors.
+returns it by category and ``print_top`` shows the top contributors, and
+beside them what was live at the step's memory peak (``peak_live_by``).
 """
 
 from __future__ import annotations
@@ -33,9 +34,12 @@ def top(mode, k: int = 15) -> Dict[str, list]:
     """The ``k`` largest entries of each ledger, largest first."""
     flops_by, bytes_by, coll_by, coll_cnt = breakdown(mode)
     pick = lambda d: sorted(d.items(), key=lambda kv: -kv[1])[:k]  # noqa: E731
+    live = mode.peak_live_by
     return {"flops": pick(flops_by), "bytes": pick(bytes_by),
             "collectives": [(key, v, coll_cnt[key]) for key, v in
-                            pick(coll_by)]}
+                            pick(coll_by)],
+            "live": [(key, b, live[key][1]) for key, b in
+                     pick({k: b for k, (b, _) in live.items()})]}
 
 
 def print_top(mode, k: int = 15) -> None:
@@ -49,3 +53,7 @@ def print_top(mode, k: int = 15) -> None:
     print(f"== top {k} collectives (wire bytes per device) ==")
     for key, v, n in t["collectives"]:
         print(f"  {v / 2**30:10.2f}GiB x{n:7.0f}  {key}")
+    print(f"== top {k} live at the peak of "
+          f"{mode.peak_live_bytes / 2**30:.2f} GiB (per device) ==")
+    for key, v, n in t["live"]:
+        print(f"  {v / 2**30:10.2f}GiB x{n:7d}  {key}")

@@ -28,8 +28,14 @@ HBM traffic and is not comparable with the reference's fused bytes.
 cost the same (a train step's microbatches) is run once and counted n
 times, as ``hlo_cost`` scales a while body by its trip count.
 ``peak_live_bytes`` is an estimate: the most bytes that op outputs held at
-once (each freed when its last reference goes, a view or a collective's
-wait holding its input's), not an allocator's peak.
+once, not an allocator's peak. An output's bytes are live while any tensor
+on its storage is: the output itself, a view of it, a collective's wait,
+a detached copy a checkpoint saved. The count holds no tensor object: a
+checkpoint's recompute saves detached views into their base's own graph,
+so holding a base for as long as its views live would never free it.
+``peak_live_by`` says
+what was live at that peak: bytes and tensor count by op and output shape
+and dtype, summing to ``peak_live_bytes``.
 """
 
 from __future__ import annotations
@@ -38,7 +44,7 @@ import contextlib
 import dataclasses
 import weakref
 from collections import defaultdict
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Tuple
 
 import torch
 import torch.utils._pytree as pytree
@@ -147,8 +153,8 @@ def _group_size(name) -> int:
 class OpCostMode(TorchDispatchMode):
     """Count what runs inside it (see the module docstring). After the
     ``with`` block: ``cost()``, ``collectives``, the per-op ledgers
-    ``flops_by`` and ``bytes_by`` (for ``breakdown``) and
-    ``peak_live_bytes``."""
+    ``flops_by`` and ``bytes_by`` (for ``breakdown``),
+    ``peak_live_bytes`` and ``peak_live_by``."""
 
     def __init__(self):
         super().__init__()
@@ -160,6 +166,14 @@ class OpCostMode(TorchDispatchMode):
         self.bytes_by: Dict[str, float] = defaultdict(float)
         self.live = 0
         self.peak_live_bytes = 0
+        # each live output's storage: [bytes, tensors on it, ledger key]
+        self._storages: Dict[int, list] = {}
+        # bytes and tensors live now, by op and output; copied at the peak
+        # once the live total next falls (or is read), so a run of rising
+        # outputs costs one copy
+        self._live_by: Dict[str, List[int]] = defaultdict(lambda: [0, 0])
+        self._peak_by: Dict[str, Tuple[int, int]] = {}
+        self._at_peak = False
         self._trips = 1.0
         self._hidden = 0
 
@@ -180,14 +194,70 @@ class OpCostMode(TorchDispatchMode):
             c.coll_counts[r.kind] = c.coll_counts.get(r.kind, 0.0) + r.times
         return c
 
-    def _track(self, out) -> None:
-        for t in _tensors(out):
-            n = _nbytes(t)
-            self.live += n
-            self.peak_live_bytes = max(self.peak_live_bytes, self.live)
-            weakref.finalize(t, self._free, n)
+    @property
+    def peak_live_by(self) -> Dict[str, Tuple[int, int]]:
+        """What was live at the peak: {"op (shape) dtype": (bytes,
+        tensors)}, the bytes summing to ``peak_live_bytes``."""
+        if self._at_peak:
+            self._snapshot()
+        return dict(self._peak_by)
 
-    def _free(self, n: int) -> None:
+    def _snapshot(self) -> None:
+        self._peak_by = {k: (b, n) for k, (b, n) in self._live_by.items()
+                         if n}
+        self._at_peak = False
+
+    def _track(self, out, op: str) -> None:
+        """Count each new storage among ``out``'s tensors as live until the
+        last tensor on it goes; a tensor on a storage already counted is
+        one more holder of it."""
+        for t in _tensors(out):
+            sid = _storage_id(t)
+            if sid in self._storages:
+                self._hold(t, sid)
+                continue
+            n = _nbytes(t)
+            key = f"{op} {tuple(t.shape)} {str(t.dtype)[6:]}"
+            self._storages[sid] = [n, 0, key]
+            entry = self._live_by[key]
+            entry[0] += n
+            entry[1] += 1
+            self.live += n
+            if self.live > self.peak_live_bytes:
+                self.peak_live_bytes = self.live
+                self._at_peak = True
+            self._hold(t, sid)
+
+    def _alias(self, out, args) -> None:
+        """An aliasing output (a view, a collective's wait, an in-place
+        op's result): one more holder of the storage it shares, or, where
+        it has a storage of its own (a fake wait), of its first input's."""
+        base = args[0] if args and isinstance(args[0], torch.Tensor) else None
+        for t in _tensors(out):
+            sid = _storage_id(t)
+            if sid in self._storages:
+                self._hold(t, sid)
+            elif base is not None and _storage_id(base) in self._storages:
+                # the input's storage object, kept while ``t`` lives, so
+                # that its identity is not reused by another storage
+                self._hold(t, _storage_id(base), base.untyped_storage())
+
+    def _hold(self, t, sid: int, storage=None) -> None:
+        self._storages[sid][1] += 1
+        weakref.finalize(t, self._release, sid, storage)
+
+    def _release(self, sid: int, storage=None) -> None:
+        st = self._storages[sid]
+        st[1] -= 1
+        if st[1]:
+            return
+        del self._storages[sid]
+        if self._at_peak:
+            self._snapshot()
+        n, _, key = st
+        entry = self._live_by[key]
+        entry[0] -= n
+        entry[1] -= 1
         self.live -= n
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -211,12 +281,12 @@ class OpCostMode(TorchDispatchMode):
                     _group_size(group), str(group), mult))
                 self.bytes += mult * _nbytes(out)
                 self.bytes_by[key] += mult * _nbytes(out)
-                self._track(out)
+                self._track(out, f"{ns}.{name}")
             else:                    # wait_tensor: its input, ready
-                _hold(out, args)
+                self._alias(out, args)
             return out
         if packet in _FREE or ns == "prim":
-            _hold(out, args)
+            self._alias(out, args)
             return out
         res = _tensors(out)
         if any(t.device.type == "meta" for t in res):
@@ -244,9 +314,9 @@ class OpCostMode(TorchDispatchMode):
         self.flops_by[key] += mult * flops
         self.bytes_by[key] += mult * (io_bytes + res_bytes)
         if _aliases(func):
-            _hold(out, args)
+            self._alias(out, args)
         else:
-            self._track(out)
+            self._track(out, f"{ns}.{name}")
         return out
 
 
@@ -292,20 +362,13 @@ def _hide_sharding_propagation() -> None:
     ShardingPropagator._propagate_tensor_meta_non_cached = hidden
 
 
-def _hold(out, args) -> None:
-    """Keep the op's first input, whose storage an aliasing output (a view,
-    a collective's wait) shares, alive as long as that output: its bytes
-    stay in ``live`` until the last alias goes."""
-    base = args[0] if args and isinstance(args[0], torch.Tensor) else None
-    if base is None:
-        return
-    for t in _tensors(out):
-        if t is not base:
-            weakref.finalize(t, _keep, base)
-
-
-def _keep(base) -> None:
-    """The finalizer ``_hold`` registers: holding ``base`` is its work."""
+def _storage_id(t: torch.Tensor) -> int:
+    """The identity of ``t``'s storage, shared by its views (a tensor with
+    no storage stands alone)."""
+    try:
+        return t.untyped_storage()._cdata
+    except (RuntimeError, NotImplementedError):
+        return id(t)
 
 
 def _aliases(func) -> bool:

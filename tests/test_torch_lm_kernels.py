@@ -386,7 +386,11 @@ def test_ffn_launch_is_an_autograd_function_through_the_plain_version(
 
 def test_flash_launch_is_an_autograd_function_through_the_plain_version(
         monkeypatch):
-    plain, calls = _counting(monkeypatch, ref, "mha_ref")
+    """The forward launches (a stub here) and saves inputs; the backward
+    is ``ref.mha_grads_blocked`` at the launch's ``block``: it launches
+    nothing and returns that function's gradients."""
+    plain = ref.mha_ref
+    blocked, calls = _counting(monkeypatch, ref, "mha_grads_blocked")
     _stub(monkeypatch, tfa, "flash_attention_cuda", plain)
     rng = np.random.default_rng(5)
     q = torch.from_numpy(rng.standard_normal((2, 24, 4, 32)).astype(
@@ -395,15 +399,135 @@ def test_flash_launch_is_an_autograd_function_through_the_plain_version(
         np.float32)).requires_grad_() for _ in range(2))
     kw = dict(causal=True, window=8, softcap=30.0, sm_scale=0.2)
     before = tfa.LAUNCHES
-    o = tfa.flash_attention(q, k, v, **kw)
+    o = tfa.flash_attention(q, k, v, block=10, **kw)
     assert type(o.grad_fn).__name__ == "FlashAttentionBackward"
     assert tfa.LAUNCHES == before + 1 and calls == []
     go = torch.from_numpy(rng.standard_normal(o.shape).astype(np.float32))
     got = torch.autograd.grad(o, (q, k, v), go)
-    assert calls == [True] and tfa.LAUNCHES == before + 1
-    want = torch.autograd.grad(plain(q, k, v, **kw), (q, k, v), go)
+    assert calls == [False] and tfa.LAUNCHES == before + 1
+    want = blocked(q.detach(), k.detach(), v.detach(), go, block=10, **kw)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    # the closed form is the plain version's gradient (held apart below)
+    auto = torch.autograd.grad(plain(q, k, v, **kw), (q, k, v), go)
+    for g, w in zip(got, auto):
+        np.testing.assert_allclose(_np(g), _np(w), atol=F32_TOL,
+                                   rtol=F32_TOL)
+
+
+# (B, Tq, Tk, H, Hkv, d, causal, window, softcap, block): each mask and the
+# softcap of 50 alone and together, GQA 16/8, blocks that do not divide Tq,
+# and rows with no valid key (Tq > Tk under a window)
+BLOCKED_CASES = [
+    (2, 96, 96, 4, 4, 32, True, None, None, 32),
+    (1, 100, 100, 16, 8, 32, True, 24, None, 32),
+    (2, 80, 80, 4, 2, 64, True, None, 50.0, 24),
+    (1, 64, 64, 16, 8, 32, True, 16, 50.0, 17),
+    (2, 48, 80, 4, 4, 32, False, None, None, 20),
+    (2, 50, 50, 4, 2, 32, False, 12, 50.0, 16),
+    (1, 40, 12, 2, 1, 16, True, 4, None, 16),
+]
+
+
+def _blocked_inputs(case, seed=11):
+    b, tq, tk, h, hkv, d = case[:6]
+    rng = np.random.default_rng(seed)
+    q, go = (rng.standard_normal((b, tq, h, d)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((b, tk, hkv, d)).astype(np.float32)
+            for _ in range(2))
+    causal, window, softcap, block = case[6:]
+    return (q, k, v, go), dict(causal=causal, window=window,
+                                softcap=softcap, sm_scale=d ** -0.5), block
+
+
+@pytest.mark.parametrize("case", BLOCKED_CASES)
+def test_blocked_attention_gradient_equals_the_plain_versions(case):
+    """``mha_grads_blocked`` against autograd of ``mha_ref`` (the
+    backward before, ``plain_grads``), f32 within 2e-5; a query row with no
+    valid key gets zero gradients, as the forward gives it zeros."""
+    arrays, kw, block = _blocked_inputs(case)
+    q, k, v, go = map(torch.from_numpy, arrays)
+    want = ref.plain_grads(lambda *a: ref.mha_ref(*a, **kw), (q, k, v),
+                           (True,) * 3, go)
+    got = ref.mha_grads_blocked(q, k, v, go, block=block, **kw)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        np.testing.assert_allclose(_np(g), _np(w), atol=F32_TOL,
+                                   rtol=F32_TOL)
+    if case[-1] == 16 and case[2] == 12:        # rows 15.. see no key
+        assert torch.count_nonzero(got[0][:, 15:]) == 0
+
+
+@pytest.mark.parametrize("case", [c for c in BLOCKED_CASES
+                                  if (c[6] and c[2] >= c[1])
+                                  or (not c[6] and c[2] % c[-1] == 0)])
+def test_blocked_attention_gradient_matches_jax_grad_of_attention_fused(
+        case):
+    """The same gradients against the reference's training attention:
+    ``jax.grad`` of ``layers.attention_fused`` (its K/V scan, ``block_k``
+    the block), f32 within 2e-5. Not the cases the reference computes
+    another function for: a row with no valid key (its online softmax
+    gives the mean of V), and a non-causal mask over keys it pads to its
+    block (the pad's position, int32 max, passes the mask)."""
+    arrays, kw, block = _blocked_inputs(case)
+    q, k, v, go = arrays
+    tq, tk = q.shape[1], k.shape[1]
+
+    def jloss(q, k, v):
+        o = jL.attention_fused(q, k, v, jnp.arange(tq), jnp.arange(tk),
+                               block_k=block, **kw)
+        return jnp.sum(o * go)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    got = ref.mha_grads_blocked(*map(torch.from_numpy, arrays), block=block,
+                                **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(w), atol=F32_TOL,
+                                   rtol=F32_TOL)
+
+
+def test_flash_backward_builds_no_t_by_t_tensor(monkeypatch):
+    """The launch's backward at T 256, block 64: no tensor any op makes has
+    (T, T) as its last two dims, and none has more elements than
+    B H x block x T. The control: the backward before (autograd of the
+    plain version) makes them."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    b, t, h, hkv, d, block = 1, 256, 4, 2, 32, 64
+
+    class Shapes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            self.seen += [tuple(o.shape) for o in
+                          torch.utils._pytree.tree_leaves(out)
+                          if isinstance(o, torch.Tensor)]
+            return out
+
+    def backward_shapes():
+        rng = np.random.default_rng(8)
+        q = torch.from_numpy(rng.standard_normal((b, t, h, d)).astype(
+            np.float32)).requires_grad_()
+        k, v = (torch.from_numpy(rng.standard_normal((b, t, hkv, d)).astype(
+            np.float32)).requires_grad_() for _ in range(2))
+        o = tfa.flash_attention(q, k, v, causal=True, softcap=50.0,
+                                block=block)
+        with Shapes() as rec:
+            torch.autograd.grad(o, (q, k, v), torch.ones_like(o))
+        return rec.seen
+
+    _stub(monkeypatch, tfa, "flash_attention_cuda", ref.mha_ref)
+    seen = backward_shapes()
+    assert seen and all(s[-2:] != (t, t) for s in seen)
+    assert max(np.prod(s) for s in seen) <= b * h * block * t
+    monkeypatch.setattr(ref, "mha_grads_blocked",
+                        lambda q, k, v, go, block, **kw: ref.plain_grads(
+                            lambda *a: ref.mha_ref(*a, **kw), (q, k, v),
+                            (True,) * 3, go))
+    assert any(s[-2:] == (t, t) for s in backward_shapes())
 
 
 @pytest.mark.parametrize("which", ["ffn", "flash"])

@@ -135,7 +135,7 @@ def test_ring_model_on_a_fake_groups_collectives(mesh_16x16):
 def test_live_bytes_hold_a_gathered_tensor_and_its_views(mesh_16x16):
     """The live estimate keeps an all-gathered tensor, which the caller
     holds through the collective's wait, and a view's base, until the last
-    alias goes."""
+    alias goes; gathers held at once each count."""
     full = 4096 * 1024 * 2
     with FakeTensorMode():
         x = distribute_tensor(torch.empty(4096, 1024, dtype=torch.bfloat16),
@@ -149,6 +149,116 @@ def test_live_bytes_hold_a_gathered_tensor_and_its_views(mesh_16x16):
             assert mode.live == full               # the view holds it
             del v
             assert mode.live == 0
+            held = [x.redistribute(mesh_16x16, [Replicate(), Replicate()])
+                    for _ in range(4)]
+            assert mode.live == 4 * full
+            del held
+            assert mode.live == 0
+
+
+def test_live_estimate_frees_each_checkpoints_recompute():
+    """Eight checkpointed units of an f32 norm under a backward: each
+    unit's recomputed tensors are live while its own backward runs, so at
+    the peak at most two units' f32 copies of x are (the one being
+    differentiated, and the first unit's, which no gradient asked for
+    unpacks). A count that held a view's base object for as long as the
+    view would count every unit's: the recompute's detached copies sit in
+    their base's own graph."""
+    def unit(x, s):
+        x32 = x.float()
+        y = x32 * torch.rsqrt(torch.mean(torch.square(x32), dim=-1,
+                                         keepdim=True) + 1e-6)
+        return (y * s).to(x.dtype)
+
+    x0 = torch.randn(8, 64, 128, dtype=torch.bfloat16, requires_grad=True)
+    scales = [torch.randn(128, requires_grad=True) for _ in range(8)]
+    copy = "aten._to_copy (8, 64, 128) float32"
+    with OpCostMode() as mode:
+        x = x0
+        for s in scales:
+            x = torch.utils.checkpoint.checkpoint(unit, x, s,
+                                                  use_reentrant=False)
+        torch.autograd.grad(x.float().sum(), scales)
+    assert 1 <= mode.peak_live_by[copy][1] <= 2
+
+
+def test_peak_live_record_names_ops_and_sums_to_the_peak():
+    """``peak_live_by``: what was live at the peak, by op, output shape and
+    dtype, each entry (bytes, tensors), the bytes summing to
+    ``peak_live_bytes``; the largest entry here is the product's f32
+    output, the peak's while the reduction runs."""
+    a, b = torch.ones(256, 512), torch.ones(512, 1024)
+    with OpCostMode() as mode:
+        c = a @ b                   # 1 MiB
+        d = torch.tanh(c)           # and 1 MiB more: the peak
+        del c
+        d.sum()
+    record = mode.peak_live_by
+    assert sum(n for n, _ in record.values()) == mode.peak_live_bytes
+    top = max(record, key=lambda k: record[k][0])
+    assert top in ("aten.mm (256, 1024) float32",
+                   "aten.tanh (256, 1024) float32")
+    assert record[top] == (256 * 1024 * 4, 1)
+    assert mode.peak_live_bytes == 2 * 256 * 1024 * 4
+
+
+def _smoke_train_mode(name, t=1024, b=2):
+    """One smoke-width train step of ``name`` at T ``t`` on fake tensors
+    under ``OpCostMode``, as the dry run lowers a cell (the kernel routes;
+    a (1, 1) mesh)."""
+    import dataclasses
+    cfg = dataclasses.replace(registry.get_smoke(name), attn_impl="kernel",
+                              block_impl="fused")
+    with fake_process_group(1):
+        mesh = make_mesh((1, 1), ("data", "model"), "cpu")
+        with FakeTensorMode():
+            mode, _, _ = dryrun.lower_cell(
+                cfg, InputShape("train_probe", t, b, "train"), mesh,
+                torch.device("cpu"))
+    return mode
+
+
+def _old_paths(monkeypatch):
+    """The two training paths before: the WKV chunks not checkpointed
+    (each chunk's (B, L, L, H, K) tensors kept for the backward) and the
+    flash backward as autograd of the plain version ((B H, T, T) f32
+    scores, softcap, mask and softmax)."""
+    from repro_torch.core import fused_ffn as ffnlib
+    from repro_torch.kernels import ref
+    checkpointed = ffnlib.checkpointed
+    monkeypatch.setattr(ffnlib, "checkpointed", lambda fn: (
+        fn if fn.__name__ == "chunk_body" else checkpointed(fn)))
+    monkeypatch.setattr(ref, "mha_grads_blocked",
+                        lambda q, k, v, go, block, **kw: ref.plain_grads(
+                            lambda *a: ref.mha_ref(*a, **kw), (q, k, v),
+                            (True,) * 3, go))
+
+
+@pytest.mark.parametrize("name", ["rwkv6-3b", "gemma2-9b"])
+def test_smoke_train_peak_live_falls_below_the_old_paths(name, monkeypatch):
+    """A smoke train step's peak live bytes at T 1024, B 2, against the
+    same step through the paths before (``_old_paths``), under the same
+    estimate: lower; and the old peak's own largest entries are the
+    tensors the change removes (rwkv6: every chunk's 5-dim WKV tensors,
+    gemma2: (B H, T, T) f32 scores)."""
+    new = _smoke_train_mode(name)
+    _old_paths(monkeypatch)
+    old = _smoke_train_mode(name)
+    assert new.peak_live_bytes < old.peak_live_bytes
+
+    def by_rank(record):
+        return sorted(record, key=lambda k: -record[k][0])
+
+    old_top, new_rec = by_rank(old.peak_live_by)[:2], new.peak_live_by
+    if name == "rwkv6-3b":
+        five = lambda k: k.count(",") == 4   # noqa: E731  (a 5-dim shape)
+        chunks = 1024 // 32                  # the WKV's chunk of 32
+        assert all(five(k) and old.peak_live_by[k][1] >= chunks
+                   for k in old_top)
+        assert sum(n for k, (_, n) in new_rec.items() if five(k)) < chunks
+    else:
+        assert all("(8, 1024, 1024) float32" in k for k in old_top)
+        assert not any("1024, 1024)" in k for k in new_rec)
 
 
 def test_dtensor_product_counted_once_at_its_local_shape(mesh_16x16):
