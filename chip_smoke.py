@@ -1390,8 +1390,9 @@ def hidden_states(params, cfg, tokens):
     cache = lm.init_cache(cfg, tokens.shape[0], tokens.shape[1],
                           device=tokens.device)
     states = [x]
-    for p, kind, key in lm._layers(params, cfg):
-        x, _ = lm.layer_prefill(x, p, kind, cfg, lm._layer_cache(cache, key))
+    for n, (p, kind, key) in enumerate(lm._layers(params, cfg)):
+        x, _ = lm.layer_prefill(x, p, kind, cfg, lm._layer_cache(cache, key),
+                                n)
         states.append(x)
     return states, lm._head(params, cfg, x[:, -1:])[:, 0]
 

@@ -42,6 +42,7 @@ from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.fused_dsc import check_tensor, on_card
+from repro_torch.runtime import trace
 
 LAUNCHES = 0
 
@@ -150,16 +151,24 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         (None: all). softcap: s -> softcap * tanh(s / softcap).
       sm_scale: score scale after the dot (default d ** -0.5).
     Returns: (B, Tq, H, d) in q's dtype, on q's device and current stream.
+    The checks and the scale, everything before the launch (the built
+    launcher plans the grid), are the span ``flash.plan``; a bf16 launch's
+    ``plan`` gives its grid as an arg.
     """
     global LAUNCHES
-    b, tq, h, d = _check_launch(q, k, v, window, softcap)
-    tk, hkv = k.shape[1], k.shape[2]
-    dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {dev}")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("q, k and v must start on 16-byte boundaries (TMA)")
-    scale = float(sm_scale if sm_scale is not None else d ** -0.5)
+    with trace.span("flash.plan") as rec:
+        b, tq, h, d = _check_launch(q, k, v, window, softcap)
+        tk, hkv = k.shape[1], k.shape[2]
+        dev = q.device
+        if dev.type != "cuda":
+            raise ValueError(f"flash_attention_cuda needs CUDA tensors, got "
+                             f"{dev}")
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("q, k and v must start on 16-byte boundaries "
+                             "(TMA)")
+        scale = float(sm_scale if sm_scale is not None else d ** -0.5)
+        if rec is not None and q.dtype == torch.bfloat16:
+            rec.args["grid"] = plan(b, tq, tk, h, hkv, d, causal).grid
     out = torch.empty_like(q)
     lib = _lib()
     with torch.cuda.device(dev):

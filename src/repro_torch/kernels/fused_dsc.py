@@ -27,6 +27,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import build
+from repro_torch.runtime import trace
 
 LAUNCHES = 0
 
@@ -226,23 +227,10 @@ def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
         raise ValueError(f"{name} must be contiguous")
 
 
-def fused_dsc_cuda(x_q, w_exp, w_dw9, w_proj, b_exp, b_dw, b_proj,
-                   m_exp, m_dw, m_proj, *, stride: int,
-                   zps: Tuple[int, int, int, int], q6: Tuple[int, int],
-                   tile_rows: Optional[int] = None) -> torch.Tensor:
-    """Launch the fused DSC kernel on CUDA tensors.
-
-    Args:
-      x_q: (B, H, W, C) int8. w_exp: (C, M), w_dw9: (9, M) tap-major,
-        w_proj: (M, N), all int8. b_*: int32 biases (zero-point folded).
-        m_*: float32 requant multipliers. All contiguous, on one card,
-        starting on 16-byte boundaries; C, M, N multiples of 8 (see
-        ``check_widths``).
-      zps: (zp_in, zp_f1, zp_f2, zp_out). q6: quantized ReLU6 caps (f1, f2).
-      tile_rows: output rows per unit; None lets ``plan`` pick.
-    Returns: (B, H2, W2, N) int8, on x_q's device and current stream.
-    """
-    global LAUNCHES
+def _check_launch(args, stride: int, tile_rows: Optional[int]):
+    """What the launcher refuses before it touches the card, ``args`` the
+    ten tensors of ``fused_dsc_cuda`` in its order: (B, H, W, C, M, N)."""
+    x_q, w_exp, w_dw9, w_proj, b_exp, b_dw, b_proj, m_exp, m_dw, m_proj = args
     if x_q.dim() != 4:
         raise ValueError(f"x_q must be (B, H, W, C), got {tuple(x_q.shape)}")
     if stride not in (1, 2):
@@ -268,26 +256,61 @@ def fused_dsc_cuda(x_q, w_exp, w_dw9, w_proj, b_exp, b_dw, b_proj,
     for t, name, dtype, shape in tensors:
         check_tensor(t, name, dtype, shape, dev)
     check_widths(cin, cmid, cout)
-    if any(t.data_ptr() % 16 for t, *_ in tensors):
+    if any(t.data_ptr() % 16 for t in args):
         raise ValueError("the fused DSC kernel's tensors must start on "
                          "16-byte boundaries")
     if dev.type != "cuda":
         raise ValueError(f"fused_dsc_cuda needs CUDA tensors, got {dev}")
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    pl = plan(b, h, w, cin, cmid, cout, stride, tile_rows, n_sm)  # may raise
-    h2, w2 = -(-h // stride), -(-w // stride)
-    out = torch.empty((b, h2, w2, cout), dtype=torch.int8, device=dev)
-    lib = _lib()
-    _, zp_f1, zp_f2, zp_out = (int(z) for z in zps)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fused_dsc_launch(
-            x_q.data_ptr(), w_exp.data_ptr(), w_dw9.data_ptr(),
-            w_proj.data_ptr(), b_exp.data_ptr(), b_dw.data_ptr(),
-            b_proj.data_ptr(), m_exp.data_ptr(), m_dw.data_ptr(),
-            m_proj.data_ptr(), out.data_ptr(),
-            b, h, w, cin, cmid, cout, stride, pl.tile_rows, n_sm,
-            zp_f1, zp_f2, zp_out, int(q6[0]), int(q6[1]), stream)
+    return b, h, w, cin, cmid, cout
+
+
+def fused_dsc_cuda(x_q, w_exp, w_dw9, w_proj, b_exp, b_dw, b_proj,
+                   m_exp, m_dw, m_proj, *, stride: int,
+                   zps: Tuple[int, int, int, int], q6: Tuple[int, int],
+                   tile_rows: Optional[int] = None) -> torch.Tensor:
+    """Launch the fused DSC kernel on CUDA tensors.
+
+    Args:
+      x_q: (B, H, W, C) int8. w_exp: (C, M), w_dw9: (9, M) tap-major,
+        w_proj: (M, N), all int8. b_*: int32 biases (zero-point folded).
+        m_*: float32 requant multipliers. All contiguous, on one card,
+        starting on 16-byte boundaries; C, M, N multiples of 8 (see
+        ``check_widths``).
+      zps: (zp_in, zp_f1, zp_f2, zp_out). q6: quantized ReLU6 caps (f1, f2).
+      tile_rows: output rows per unit; None lets ``plan`` pick.
+    Returns: (B, H2, W2, N) int8, on x_q's device and current stream.
+
+    Spans (``runtime.trace``): ``dsc.check`` (``_check_launch``),
+    ``dsc.plan`` (the card's SMs and ``plan``, whose numbers are its args),
+    ``dsc.launch`` (the output and the ``ctypes`` call).
+    """
+    global LAUNCHES
+    with trace.span("dsc.check"):
+        b, h, w, cin, cmid, cout = _check_launch(
+            (x_q, w_exp, w_dw9, w_proj, b_exp, b_dw, b_proj, m_exp, m_dw,
+             m_proj), stride, tile_rows)
+    dev = x_q.device
+    with trace.span("dsc.plan") as rec:
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        # may raise
+        pl = plan(b, h, w, cin, cmid, cout, stride, tile_rows, n_sm)
+        if rec is not None:
+            rec.args.update(tile_rows=pl.tile_rows, grid=pl.grid,
+                            units=pl.units, smem_bytes=pl.smem_bytes)
+    with trace.span("dsc.launch"):
+        h2, w2 = -(-h // stride), -(-w // stride)
+        out = torch.empty((b, h2, w2, cout), dtype=torch.int8, device=dev)
+        lib = _lib()
+        _, zp_f1, zp_f2, zp_out = (int(z) for z in zps)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.fused_dsc_launch(
+                x_q.data_ptr(), w_exp.data_ptr(), w_dw9.data_ptr(),
+                w_proj.data_ptr(), b_exp.data_ptr(), b_dw.data_ptr(),
+                b_proj.data_ptr(), m_exp.data_ptr(), m_dw.data_ptr(),
+                m_proj.data_ptr(), out.data_ptr(),
+                b, h, w, cin, cmid, cout, stride, pl.tile_rows, n_sm,
+                zp_f1, zp_f2, zp_out, int(q6[0]), int(q6[1]), stream)
     if err != 0:
         msg = lib.fused_dsc_error_string(err).decode()
         raise RuntimeError(f"fused_dsc kernel launch failed: {msg} ({err})")

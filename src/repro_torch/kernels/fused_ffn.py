@@ -52,6 +52,7 @@ from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.fused_dsc import check_tensor, on_card
+from repro_torch.runtime import trace
 
 LAUNCHES = 0
 
@@ -276,6 +277,8 @@ def fused_ffn_cuda(x: torch.Tensor, w_gate: Optional[torch.Tensor],
         d_ff multiples of 16.
       act: silu | gelu (tanh) | relu_sq | relu.
     Returns: (T, d_model) in x's dtype, on x's device and current stream.
+    The card's SMs and the plan are the span ``ffn.plan``, with the plan's
+    slices, d_ff groups, cluster and grid as args.
     """
     global LAUNCHES
     t, d, f = _check_launch(x, w_gate, w_up, w_down, act)
@@ -286,9 +289,13 @@ def fused_ffn_cuda(x: torch.Tensor, w_gate: Optional[torch.Tensor],
                          "(TMA)")
     if dev.type != "cuda":
         raise ValueError(f"fused_ffn_cuda needs CUDA tensors, got {dev}")
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    pl = plan(t, d, f, x.dtype, n_sm)
-    _check_plan(pl, x.dtype)
+    with trace.span("ffn.plan") as rec:
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        pl = plan(t, d, f, x.dtype, n_sm)
+        _check_plan(pl, x.dtype)
+        if rec is not None:
+            rec.args.update(slices=pl.slices, groups=pl.groups,
+                            cluster=pl.cluster, grid=pl.grid)
     ws = torch.empty(pl.ws_bytes // 4, dtype=torch.float32, device=dev)
     out = torch.empty_like(x)
     lib = _lib()

@@ -28,6 +28,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_dsc as _dsc
 from repro_torch.kernels import fused_ffn as _ffn
 from repro_torch.kernels import ref
+from repro_torch.runtime import trace
 
 
 def dsc_block(x_q: torch.Tensor, w_exp, w_dw9, w_proj, b_exp, b_dw, b_proj,
@@ -35,15 +36,19 @@ def dsc_block(x_q: torch.Tensor, w_exp, w_dw9, w_proj, b_exp, b_dw, b_proj,
               tile_rows: Optional[int] = None) -> torch.Tensor:
     """One fused Ex->Dw->Pr inverted-residual block (no residual add) on a
     (B, H, W, C) int8 batch. ``tile_rows`` None lets the kernel's plan pick
-    the rows per unit."""
+    the rows per unit. The whole call is the span ``dsc_block``."""
     args = (x_q, w_exp, w_dw9, w_proj, b_exp, b_dw, b_proj, m_exp, m_dw,
             m_proj)
-    if x_q.device.type == "cuda":
-        return _dsc.fused_dsc_cuda(*args, stride=stride, zps=zps, q6=q6,
-                                   tile_rows=tile_rows)
-    if x_q.device.type == "cpu":
-        return ref.fused_dsc_ref(*args, stride=stride, zps=zps, q6=q6)
-    raise ValueError(f"dsc_block: unsupported device {x_q.device}")
+    with trace.span("dsc_block") as rec:
+        if rec is not None:
+            rec.args.update(zip("BHWC", x_q.shape), M=w_exp.shape[-1],
+                            N=w_proj.shape[-1], stride=stride)
+        if x_q.device.type == "cuda":
+            return _dsc.fused_dsc_cuda(*args, stride=stride, zps=zps, q6=q6,
+                                       tile_rows=tile_rows)
+        if x_q.device.type == "cpu":
+            return ref.fused_dsc_ref(*args, stride=stride, zps=zps, q6=q6)
+        raise ValueError(f"dsc_block: unsupported device {x_q.device}")
 
 
 def ffn(x: torch.Tensor, w_gate: Optional[torch.Tensor], w_up: torch.Tensor,

@@ -67,6 +67,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rg
 from repro_torch.models import rwkv6 as rwkv
+from repro_torch.runtime import trace
 from repro_torch.runtime.actctx import (constrain, local_call, local_rank,
                                         mesh_size, placed, sharded_on)
 
@@ -198,35 +199,49 @@ def init_layer_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
     raise ValueError(f"unknown layer kind {kind!r}")
 
 
-def layer_prefill(x, p, kind, cfg, cache):
+def layer_prefill(x, p, kind, cfg, cache, layer: int):
     """Returns (x, cache): the attention layers' KV cache is written in
     place; the recurrent and rwkv layers return new state, which the
-    caller stores."""
+    caller stores. Spans (``runtime.trace``, ``layer`` the layer's index
+    as their arg): an attention layer's attention ``lm.attention`` and the
+    second residual pair ``lm.ffn``."""
     h = _norm(x, p["norm1"], cfg)
     if kind in ATTN_KINDS:
-        y, cache = L.attention_prefill(h, p["sub1"], cfg, cache,
-                                       local=(kind == "attn_local"))
+        with trace.span("lm.attention") as rec:
+            if rec is not None:
+                rec.args["layer"] = layer
+            y, cache = L.attention_prefill(h, p["sub1"], cfg, cache,
+                                           local=(kind == "attn_local"))
     elif kind == "recurrent":
         y, cache = rg.rglru_prefill(h, p["sub1"], cfg, cache)
     else:
         y, cache = rwkv.time_mix(h, p["sub1"], cfg, cache)
-    x, _, cache = _second_half(_residual(x, y, p, "post_norm1", cfg), p, kind,
-                               cfg, cache)
+    x = _residual(x, y, p, "post_norm1", cfg)
+    with trace.span("lm.ffn") as rec:
+        if rec is not None:
+            rec.args["layer"] = layer
+        x, _, cache = _second_half(x, p, kind, cfg, cache)
     return x, cache
 
 
-def layer_decode(x, p, kind, cfg, cache, pos: int):
+def layer_decode(x, p, kind, cfg, cache, pos: int, layer: int):
     """As ``layer_prefill``, one token at absolute position ``pos``."""
     h = _norm(x, p["norm1"], cfg)
     if kind in ATTN_KINDS:
-        y, cache = L.attention_decode(h, p["sub1"], cfg, cache, pos,
-                                      local=(kind == "attn_local"))
+        with trace.span("lm.attention") as rec:
+            if rec is not None:
+                rec.args["layer"] = layer
+            y, cache = L.attention_decode(h, p["sub1"], cfg, cache, pos,
+                                          local=(kind == "attn_local"))
     elif kind == "recurrent":
         y, cache = rg.rglru_decode(h, p["sub1"], cfg, cache)
     else:
         y, cache = rwkv.time_mix(h, p["sub1"], cfg, cache)
-    x, _, cache = _second_half(_residual(x, y, p, "post_norm1", cfg), p, kind,
-                               cfg, cache)
+    x = _residual(x, y, p, "post_norm1", cfg)
+    with trace.span("lm.ffn") as rec:
+        if rec is not None:
+            rec.args["layer"] = layer
+        x, _, cache = _second_half(x, p, kind, cfg, cache)
     return x, cache
 
 
@@ -433,17 +448,20 @@ def _embed_sharded(params, cfg: ArchConfig, tokens, patches, frames):
 
 
 def _head(params, cfg: ArchConfig, x):
-    x = _norm(x, params["final_norm"], cfg)
-    if isinstance(x, DTensor):
-        logits = _head_sharded(params, cfg, x)
-    else:
-        w = (params["embed"].T if cfg.tie_embeddings
-             else params["lm_head"]).to(x.dtype)
-        logits = (x @ w).float()
-    logits = constrain(logits, "B", None, "M")   # vocab TP-sharded
-    if cfg.final_softcap is not None:
-        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
-    return logits
+    """The final norm and the logits: the span ``lm.head``."""
+    with trace.span("lm.head"):
+        x = _norm(x, params["final_norm"], cfg)
+        if isinstance(x, DTensor):
+            logits = _head_sharded(params, cfg, x)
+        else:
+            w = (params["embed"].T if cfg.tie_embeddings
+                 else params["lm_head"]).to(x.dtype)
+            logits = (x @ w).float()
+        logits = constrain(logits, "B", None, "M")   # vocab TP-sharded
+        if cfg.final_softcap is not None:
+            logits = cfg.final_softcap * torch.tanh(logits
+                                                    / cfg.final_softcap)
+        return logits
 
 
 def _head_sharded(params, cfg: ArchConfig, x):
@@ -668,36 +686,43 @@ def _store(view: Params, new: Params) -> None:
 def prefill(params, cfg: ArchConfig, tokens=None, patches=None, frames=None,
             max_len: Optional[int] = None, cache_dtype=torch.bfloat16):
     """Process a prompt (after the vision prefix, if any); return
-    (last-token logits (B, Vp), cache). ``max_len`` counts the prefix."""
-    x = _embed(params, cfg, tokens, patches, frames)
-    b, t = x.shape[0], x.shape[1]
-    if isinstance(x, DTensor):
-        cache = sharded_cache(cfg, b, max_len or t, x.device_mesh,
-                              cache_dtype)
-    else:
-        cache = init_cache(cfg, b, max_len or t, cache_dtype, x.device)
-    views = _layer_caches(cache, cfg)
-    for p, kind, key in _layers(params, cfg):
-        x = constrain(x, "B", None, None)
-        view = views[key]
-        x, new = layer_prefill(x, p, kind, cfg, view)
-        _store(view, new)
-    return _head(params, cfg, x[:, -1:])[:, 0], cache
+    (last-token logits (B, Vp), cache). ``max_len`` counts the prefix.
+    The whole call is the span ``lm.prefill``."""
+    with trace.span("lm.prefill") as rec:
+        x = _embed(params, cfg, tokens, patches, frames)
+        b, t = x.shape[0], x.shape[1]
+        if rec is not None:
+            rec.args.update(B=b, T=t)
+        if isinstance(x, DTensor):
+            cache = sharded_cache(cfg, b, max_len or t, x.device_mesh,
+                                  cache_dtype)
+        else:
+            cache = init_cache(cfg, b, max_len or t, cache_dtype, x.device)
+        views = _layer_caches(cache, cfg)
+        for n, (p, kind, key) in enumerate(_layers(params, cfg)):
+            x = constrain(x, "B", None, None)
+            view = views[key]
+            x, new = layer_prefill(x, p, kind, cfg, view, layer=n)
+            _store(view, new)
+        return _head(params, cfg, x[:, -1:])[:, 0], cache
 
 
 def decode_step(params, cfg: ArchConfig, cache, token, pos: int):
     """One decode step. token: (B,) ints; pos: the absolute position of
     this token. Returns (logits (B, Vp), cache), the cache updated in
-    place."""
+    place. The whole call is the span ``lm.decode_step``."""
     if cfg.frontend == "audio":
         raise ValueError(f"{cfg.name} is encoder-only: it has no decode step")
-    if not isinstance(token, DTensor):
-        token = _tokens(token, _device(params))
-    x = _embed(params, cfg, token[:, None])
-    views = _layer_caches(cache, cfg)
-    for p, kind, key in _layers(params, cfg):
-        x = constrain(x, "B", None, None)
-        view = views[key]
-        x, new = layer_decode(x, p, kind, cfg, view, int(pos))
-        _store(view, new)
-    return _head(params, cfg, x)[:, 0], cache
+    with trace.span("lm.decode_step") as rec:
+        if not isinstance(token, DTensor):
+            token = _tokens(token, _device(params))
+        if rec is not None:
+            rec.args.update(B=token.shape[0], pos=int(pos))
+        x = _embed(params, cfg, token[:, None])
+        views = _layer_caches(cache, cfg)
+        for n, (p, kind, key) in enumerate(_layers(params, cfg)):
+            x = constrain(x, "B", None, None)
+            view = views[key]
+            x, new = layer_decode(x, p, kind, cfg, view, int(pos), layer=n)
+            _store(view, new)
+        return _head(params, cfg, x)[:, 0], cache

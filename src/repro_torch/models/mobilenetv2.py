@@ -27,6 +27,7 @@ from repro_torch.core import quant
 from repro_torch.core.dsc import DSCBlockSpec, QuantizedDSCParams
 from repro_torch.core.fusion import Schedule, run_block
 from repro_torch.kernels import ops as kops
+from repro_torch.runtime import trace
 
 # (name, cin, cmid, cout, stride) at the paper's feature-map sizes;
 # input feature map is 40x40x8 (stem output).
@@ -268,25 +269,38 @@ def forward_stages(imgs, p: MobileNetV2Params,
                    schedule: Schedule = Schedule.V3_INTRA_STAGE,
                    use_kernel: bool = False) -> List[torch.Tensor]:
     """int8 outputs of every stage for a batch (B, H, W, 3) of float images:
-    the stem, each of the seven blocks, then the int8 logits (B, classes)."""
-    imgs = torch.as_tensor(imgs, dtype=torch.float32, device=p.device)
-    x = _stem_int8(quant.quantize(imgs, p.qp_img), p)
+    the stem, each of the seven blocks, then the int8 logits (B, classes).
+    Spans (``runtime.trace``): ``mbv2.input``, ``mbv2.stem``, one
+    ``mbv2.block`` a block (the block and its residual add), ``mbv2.head``
+    (the 1x1 head, GAP and FC)."""
+    with trace.span("mbv2.input"):
+        imgs = torch.as_tensor(imgs, dtype=torch.float32, device=p.device)
+        x = quant.quantize(imgs, p.qp_img)
+    with trace.span("mbv2.stem"):
+        x = _stem_int8(x, p)
     stages = [x]
-    for qp in p.blocks:
-        x = _block_int8(x, qp, schedule, use_kernel)
+    for i, qp in enumerate(p.blocks):
+        with trace.span("mbv2.block") as rec:
+            if rec is not None:
+                rec.args.update(index=i, stride=qp.spec.stride,
+                                residual=qp.spec.has_residual)
+            x = _block_int8(x, qp, schedule, use_kernel)
         stages.append(x)
-    # head 1x1 + ReLU6
-    acc = quant.int8_matmul(x, p.head_w) + p.head_b
-    h = quant.requantize(acc, p.head_m, p.qp_head.zero_point, relu=True,
-                         relu6_max_q=quant.relu6_max_q(p.qp_head))
-    # global average pool (int32 sum / hw in float32, rounded half to even)
-    hw = torch.tensor(h.shape[-3] * h.shape[-2], dtype=torch.float32,
-                      device=h.device)
-    g = torch.round(h.to(torch.int32).sum(dim=(-3, -2)).to(torch.float32) / hw)
-    g = torch.clamp(g, -128, 127).to(torch.int8)
-    # fc
-    acc = quant.int8_matmul(g, p.fc_w) + p.fc_b
-    stages.append(quant.requantize(acc, p.fc_m, p.qp_logits.zero_point))
+    with trace.span("mbv2.head"):
+        # head 1x1 + ReLU6
+        acc = quant.int8_matmul(x, p.head_w) + p.head_b
+        h = quant.requantize(acc, p.head_m, p.qp_head.zero_point, relu=True,
+                             relu6_max_q=quant.relu6_max_q(p.qp_head))
+        # global average pool (int32 sum / hw in float32, rounded half to
+        # even)
+        hw = torch.tensor(h.shape[-3] * h.shape[-2], dtype=torch.float32,
+                          device=h.device)
+        g = torch.round(h.to(torch.int32).sum(dim=(-3, -2)).to(torch.float32)
+                        / hw)
+        g = torch.clamp(g, -128, 127).to(torch.int8)
+        # fc
+        acc = quant.int8_matmul(g, p.fc_w) + p.fc_b
+        stages.append(quant.requantize(acc, p.fc_m, p.qp_logits.zero_point))
     return stages
 
 
@@ -298,12 +312,16 @@ def forward_batch(imgs, p: MobileNetV2Params,
 
     Runs on the parameters' device. ``use_kernel`` sends each block through
     ``ops.dsc_block`` (the CUDA kernel for CUDA tensors). ``return_quantized``
-    returns the raw int8 logits instead of their dequantized floats.
+    returns the raw int8 logits instead of their dequantized floats. The
+    whole call is the span ``mbv2.forward_batch``.
     """
-    logits_q = forward_stages(imgs, p, schedule, use_kernel)[-1]
-    if return_quantized:
-        return logits_q
-    return quant.dequantize(logits_q, p.qp_logits)
+    with trace.span("mbv2.forward_batch") as rec:
+        if rec is not None:
+            rec.args["batch"] = len(imgs)
+        logits_q = forward_stages(imgs, p, schedule, use_kernel)[-1]
+        if return_quantized:
+            return logits_q
+        return quant.dequantize(logits_q, p.qp_logits)
 
 
 def forward_int8(img, p: MobileNetV2Params, **kw) -> torch.Tensor:
