@@ -387,10 +387,12 @@ def attention_decode(x, p, cfg: ArchConfig, cache, pos: int, *, local: bool,
 
     ``pos``: the absolute position of the incoming token. The cache is a
     ring buffer for local layers (slot = pos % size) and a flat buffer for
-    global layers. Scores and the PV product accumulate in f32 from the
-    cache's dtype, as the reference's ``preferred_element_type`` does.
-    On a mesh whose ``model`` axis the KV heads do not divide, the
-    sequence-sharded branch (``_decode_seq_sharded``).
+    global layers. The attention is the grouped-GQA form
+    (``_decode_grouped``): the cache is read once, in its own dtype, with
+    no per-head repeat; scores and the PV product accumulate in f32, as
+    the reference's ``preferred_element_type`` does. On a mesh whose
+    ``model`` axis the KV heads do not divide, the sequence-sharded branch
+    (``_decode_seq_sharded``).
     """
     if isinstance(x, DTensor):
         out = _sharded_attention(
@@ -415,25 +417,13 @@ def attention_decode(x, p, cfg: ArchConfig, cache, pos: int, *, local: bool,
         k_pos = pos - torch.remainder(pos - idx, size)
     else:
         k_pos = idx
-    hd = cfg.head_dim_
     valid = (k_pos >= 0) & (k_pos <= pos)
     if local and cfg.window:
         valid &= (pos - k_pos) < cfg.window
     if heads is not None and heads.seq_sharded:
         o = _decode_seq_sharded(q, ck, cv, valid, cfg, heads)
-        out = torch.einsum("bthk,hkd->btd", o, p["wo"].to(x.dtype))
-        return out, cache
-    ck, cv = _kv_for(ck, cv, cfg, heads)
-    kr = repeat_kv(ck, q.shape[2])
-    vr = repeat_kv(cv, q.shape[2])
-    qf = (q.float() * hd ** -0.5).to(kr.dtype)              # (B, 1, H, hd)
-    s = torch.einsum("bqhd,bkhd->bhqk", qf.float(), kr.float())
-    if cfg.attn_softcap is not None:
-        s = cfg.attn_softcap * torch.tanh(s / cfg.attn_softcap)
-    s = torch.where(valid[None, None, None, :], s, torch.full_like(s, -1e30))
-    pattn = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhqk,bkhd->bqhd", pattn.to(vr.dtype).float(), vr.float())
-    o = o.to(x.dtype)
+    else:
+        o = _decode_grouped(q, *_kv_for(ck, cv, cfg, heads), valid, cfg)
     out = torch.einsum("bthk,hkd->btd", o, p["wo"].to(x.dtype))
     return out, cache
 
@@ -541,13 +531,48 @@ def _f32_bmm(a, b):
     return torch.bmm(a.float(), b.float())
 
 
+def _decode_grouped(q, ck, cv, valid, cfg: ArchConfig, group=None):
+    """Decode attention in the grouped-GQA form: query heads q (B, 1, H,
+    hd), head h reading KV head h // (H / Hkv) of ck, cv (B, S, Hkv, hd),
+    over the slots ``valid`` marks. The cache is read once, in its own
+    dtype: no KV repeat, no f32 copy on the card. q is scaled and rounded
+    to the cache's dtype, scores and PV accumulate in f32 (``_f32_bmm``),
+    softcap, mask and softmax run in f32 and the probabilities are rounded
+    to the cache's dtype, as in the reference. Where ``group`` holds the
+    ranks that share the sequence, the softmax max and sum and the PV
+    product are all-reduced over it. Returns o (B, 1, H, hd) in q's
+    dtype."""
+    b, _, h, hd = q.shape
+    hkv = ck.shape[2]
+    qg = (q.float() * hd ** -0.5).to(ck.dtype).reshape(b, hkv, h // hkv, hd)
+    # (B, Hkv, g, S) scores, one KV head at a time: every product reads
+    # its head of the cache in place
+    s = torch.stack([_f32_bmm(qj, kj.transpose(1, 2))
+                     for qj, kj in zip(qg.unbind(1), ck.unbind(2))], dim=1)
+    if cfg.attn_softcap is not None:
+        s = cfg.attn_softcap * torch.tanh(s / cfg.attn_softcap)
+    s = torch.where(valid, s, -1e30)
+    if group is None:
+        pattn = torch.softmax(s, dim=-1)
+    else:
+        m = funcol.all_reduce(s.amax(dim=-1, keepdim=True), "max", group)
+        e = torch.exp(s - m)
+        denom = funcol.all_reduce(e.sum(dim=-1, keepdim=True), "sum", group)
+        pattn = e / denom
+    pattn = pattn.to(cv.dtype)
+    o = torch.stack([_f32_bmm(pj, vj) for pj, vj in          # (B, Hkv, g, hd)
+                     zip(pattn.unbind(1), cv.unbind(2))], dim=1)
+    if group is not None:
+        o = funcol.all_reduce(o, "sum", group)
+    return o.reshape(b, 1, h, hd).to(q.dtype)
+
+
 def _decode_seq_sharded(q, ck, cv, valid, cfg: ArchConfig, heads: Heads):
     """The reference's sequence-sharded decode attention: every query head
     (gathered over ``model``) against this rank's cache slots, in the
-    grouped-GQA form without a KV repeat; scores and PV in f32, the
-    cache read in its own dtype. Softmax max and sum and the PV product are
-    all-reduced over the ranks that share the sequence. Returns this rank's
-    query heads of o (B, 1, n_q, hd) in q's dtype."""
+    grouped-GQA form (``_decode_grouped``), its softmax and PV reduced over
+    the ranks that share the sequence. Returns this rank's query heads of
+    o (B, 1, n_q, hd) in q's dtype."""
     group = heads.group
     off, n_q = 0, q.shape[2]
     if group is None:               # the whole sequence here
@@ -555,27 +580,5 @@ def _decode_seq_sharded(q, ck, cv, valid, cfg: ArchConfig, heads: Heads):
     elif n_q < cfg.n_heads_padded:
         q = funcol.all_gather_tensor(q.contiguous(), 2, group)
         off = heads.q_off
-    b, _, h, hd = q.shape
-    hkv = ck.shape[2]
-    g = h // hkv
-    qg = (q.float() * hd ** -0.5).to(ck.dtype).reshape(b, hkv, g, hd)
-    # (B, Hkv, g, S) scores, one KV head at a time: no head repeat
-    s = torch.stack([_f32_bmm(qg[:, j], ck[:, :, j].transpose(1, 2))
-                     for j in range(hkv)], dim=1)
-    if cfg.attn_softcap is not None:
-        s = cfg.attn_softcap * torch.tanh(s / cfg.attn_softcap)
-    s = torch.where(valid[None, None, None, :], s, torch.full_like(s, -1e30))
-    m = s.amax(dim=-1, keepdim=True)
-    if group is not None:
-        m = funcol.all_reduce(m, "max", group)
-    e = torch.exp(s - m)
-    denom = e.sum(dim=-1, keepdim=True)
-    if group is not None:
-        denom = funcol.all_reduce(denom, "sum", group)
-    pattn = (e / denom).to(cv.dtype)
-    o = torch.stack([_f32_bmm(pattn[:, j], cv[:, :, j])
-                     for j in range(hkv)], dim=1)            # (B, Hkv, g, hd)
-    if group is not None:
-        o = funcol.all_reduce(o, "sum", group)
-    o = o.reshape(b, 1, h, hd)
-    return o[:, :, off:off + n_q].to(q.dtype)
+    o = _decode_grouped(q, ck, cv, valid, cfg, group)
+    return o[:, :, off:off + n_q]

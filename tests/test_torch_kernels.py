@@ -476,3 +476,73 @@ def test_fused_ffn_pads_a_d_ff_shard_the_kernel_refuses():
     assert fused_ffn.LAUNCHES == before + 1
     torch.cuda.synchronize()
     _close(got, ref.fused_ffn_ref(x, wg, wu, wd, act="silu"), 2e-2)
+
+
+def _repeat_decode_attention(q, ck, cv, valid):
+    """The decode attention's per-head repeat form, a yardstick: each KV
+    head repeated to its query heads, both caches upcast to f32."""
+    from repro_torch.models import layers as L
+    kr, vr = L.repeat_kv(ck, q.shape[2]), L.repeat_kv(cv, q.shape[2])
+    qf = (q.float() * q.shape[-1] ** -0.5).to(kr.dtype)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf.float(), kr.float())
+    s = torch.where(valid[None, None, None, :], s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(vr.dtype).float(),
+                        vr.float()).to(q.dtype)
+
+
+def _rise(fn):
+    """fn's result and the rise of the card's allocated bytes over what was
+    allocated before it ran."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+@pytest.mark.gpu
+def test_grouped_decode_attention_on_the_card():
+    """One glm4-9b decode attention layer at B 16 over a bf16 cache of 1,148
+    slots (32 query heads over 2 KV heads, d 128): on the card it equals
+    its CPU twin within 2e-2, and allocates under 32 MB over its inputs,
+    where the per-head repeat with f32 copies of the cache allocates more
+    than 0.5 GB and gives the same attention."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the f32-accumulating bf16 product "
+                    "has no CPU kernel")
+    from repro_torch.configs import registry
+    from repro_torch.models import layers as L
+    cfg = registry.get("glm4-9b")
+    b, size, pos = 16, 1148, 1100
+    gen = torch.Generator().manual_seed(21)
+    p = L.init_attention(gen, cfg, dtype=torch.bfloat16)
+    shape = (b, size, cfg.n_kv_heads, cfg.head_dim_)
+    cache = {n: torch.randn(shape, generator=gen).bfloat16() for n in "kv"}
+    x = torch.randn((b, 1, cfg.d_model), generator=gen).bfloat16()
+    dev = torch.device("cuda")
+    pc = {k: v.to(dev) for k, v in p.items()}
+    cc = {k: v.to(dev) for k, v in cache.items()}
+    # a first call allocates cuBLAS's workspace; the second writes the same
+    # cache row again
+    L.attention_decode(x.to(dev), pc, cfg, cc, pos, local=False)
+    (got, _), rise = _rise(lambda: L.attention_decode(
+        x.to(dev), pc, cfg, cc, pos, local=False))
+    want, _ = L.attention_decode(x, p, cfg, cache, pos, local=False)
+    _close(got.cpu(), want, 2e-2)
+    _close(cc["k"].cpu(), cache["k"], 2e-2)
+    assert rise < 32 * 2 ** 20, rise
+    # the attention alone, against the repeat form on the same inputs
+    q, _, _ = L._project_qkv(x.to(dev), pc, cfg,
+                             torch.full((b, 1), pos, device=dev))
+    valid = torch.arange(size, device=dev) <= pos
+    grouped, g_rise = _rise(lambda: L._decode_grouped(q, cc["k"], cc["v"],
+                                                      valid, cfg))
+    repeat, r_rise = _rise(lambda: _repeat_decode_attention(
+        q, cc["k"], cc["v"], valid))
+    _close(grouped, repeat, 2e-2)
+    print(f"allocated over the inputs: layer {rise} B, grouped attention "
+          f"{g_rise} B, repeat form {r_rise} B")
+    assert g_rise < 32 * 2 ** 20, g_rise
+    assert r_rise > 2 ** 29, r_rise

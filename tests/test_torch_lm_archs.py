@@ -374,3 +374,89 @@ def test_head_pad_is_exact_against_the_unpadded_layer(name):
     own = tL.init_attention(torch.Generator().manual_seed(0), tcfg)
     for k in ("wq", "wo"):
         assert torch.equal(own[k] == 0, torch.from_numpy(p[k] == 0)), k
+
+
+# --- decode attention in the grouped-GQA form ----------------------------------
+
+# (case, arch, overrides, local, cache dtype): the head ratios and masks the
+# decode attention's grouped form has to map, each case in the cache dtypes
+# the layer tests above and tests/test_torch_lm.py do not already run it in
+DECODE_CASES = [
+    ("gqa_32_2", "glm4-9b", {"n_heads": 32, "head_dim": 32}, False, "f32"),
+    ("gqa_32_2", "glm4-9b", {"n_heads": 32, "head_dim": 32}, False, "bf16"),
+    ("mqa_ring", "recurrentgemma-9b", {}, True, "f32"),
+    ("mqa_ring", "recurrentgemma-9b", {}, True, "bf16"),
+    ("mha", "qwen2-moe-a2.7b", {}, False, "f32"),
+    ("mha", "qwen2-moe-a2.7b", {}, False, "bf16"),
+    ("softcap_ring", "gemma2-9b", {}, True, "bf16"),
+    ("head_pad", "qwen3-14b", {"head_pad": 2}, False, "bf16"),
+]
+# tests/test_kernels.py's tolerances: f32, and a bf16 cache
+DECODE_TOL = {"f32": LAYER_TOL, "bf16": 2e-2}
+
+
+@pytest.mark.parametrize("case,name,over,local,dt", DECODE_CASES,
+                         ids=[f"{c[0]}-{c[4]}" for c in DECODE_CASES])
+def test_decode_attention_matches_jax(case, name, over, local, dt):
+    """The one-device ``attention_decode`` against the reference's on the
+    same weights and a seeded cache: GQA 32/2, MQA and gemma2's softcap
+    over a ring buffer (window 16, positions past it), MHA, pad heads."""
+    jcfg, tcfg = _cfgs(name, **over)
+    assert tcfg.n_heads_padded // tcfg.n_kv_heads == {
+        "gqa_32_2": 16, "mqa_ring": 4, "mha": 1, "softcap_ring": 2,
+        "head_pad": 3}[case]
+    assert bool(local and tcfg.window) == case.endswith("_ring")
+    assert (tcfg.attn_softcap is not None) == (case == "softcap_ring")
+    jdt, tdt = {"f32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[dt]
+    p = _layer_params(jcfg, 13)
+    jp = jax.tree.map(jnp.asarray, p)
+    tp = {k: torch.from_numpy(v.copy()) for k, v in p.items()}
+    max_len, pos0 = 28, 24
+    size = min(max_len, tcfg.window) if local and tcfg.window else max_len
+    rng = np.random.default_rng(14)
+    shape = (B, size, tcfg.n_kv_heads, tcfg.head_dim_)
+    kv = [rng.standard_normal(shape).astype(np.float32) for _ in range(2)]
+    jc = {n: jnp.asarray(a, jdt) for n, a in zip("kv", kv)}
+    tc = {n: torch.from_numpy(a).to(tdt) for n, a in zip("kv", kv)}
+    tol = DECODE_TOL[dt]
+    for step in range(2):
+        xs = rng.standard_normal((B, 1, tcfg.d_model)).astype(np.float32)
+        jy, jc = jL.attention_decode(jnp.asarray(xs), jp, jcfg, jc,
+                                     jnp.int32(pos0 + step), local=local)
+        ty, tc = tL.attention_decode(torch.from_numpy(xs), tp, tcfg, tc,
+                                     pos0 + step, local=local)
+        np.testing.assert_allclose(_np(ty), _np(jy), atol=tol, rtol=tol)
+        for n in "kv":
+            np.testing.assert_allclose(_np(tc[n]), _np(jc[n]), atol=tol,
+                                       rtol=tol)
+
+
+@pytest.mark.parametrize("name", ["glm4-9b", "gemma2-9b", "qwen2-moe-a2.7b",
+                                  "recurrentgemma-9b",
+                                  "llama4-scout-17b-a16e"])
+def test_decode_step_repeats_no_kv_head(name, monkeypatch):
+    """A whole decode step calls ``repeat_kv`` nowhere: the prefill's plain
+    attention does (the count sees it), the decode attention's grouped form
+    reads each KV head in place."""
+    calls = []
+    plain = tL.repeat_kv
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return plain(*a, **kw)
+    monkeypatch.setattr(tL, "repeat_kv", counted)
+    cfg = dataclasses.replace(treg.get_smoke(name), attn_impl="reference")
+    params = tlm.init_params(cfg, 0, "cpu", torch.float32)
+    tokens = torch.randint(0, cfg.vocab, (B, 8),
+                           generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        logits, cache = tlm.prefill(params, cfg, tokens, max_len=12,
+                                    cache_dtype=torch.bfloat16)
+        assert calls
+        del calls[:]
+        for i in range(2):
+            tok = logits[:, :cfg.vocab].argmax(-1)
+            logits, cache = tlm.decode_step(params, cfg, cache, tok, 8 + i)
+    assert torch.isfinite(logits).all()
+    assert not calls
