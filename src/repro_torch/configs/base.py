@@ -31,6 +31,24 @@ class MoESpec:
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.01
 
+    # The routing of the reference's MoE models: softmax scores, top-k
+    # gates renormalized, capacity dispatch. A class attribute, not a
+    # field, so that ``asdict`` stays the reference's; ``SigmoidMoESpec``
+    # makes it one.
+    score_func = "softmax"
+
+
+@dataclasses.dataclass(frozen=True)
+class SigmoidMoESpec(MoESpec):
+    """Sigmoid-routed dropless experts (afmoe, DeepSeek-V3 style): scores
+    sigmoid(h W_r) in f32; the top-k of the scores plus a per-expert
+    selection bias pick the experts, the unbiased scores of those k,
+    normalized to sum 1 and times ``route_scale``, weight them; every
+    assignment is computed (no capacity)."""
+
+    score_func: str = "sigmoid"
+    route_scale: float = 1.0
+
 
 @dataclasses.dataclass(frozen=True)
 class InputShape:
@@ -123,6 +141,13 @@ class ArchConfig:
     # un-replicating attention for archs like qwen3 (40 -> 48 heads).
     head_pad: int = 0
 
+    # Features of the architectures the port runs beyond the reference's
+    # ten (``PortArchConfig``), off here. Class attributes, not fields, so
+    # that the ten configs' ``asdict`` stays the reference's.
+    n_dense_layers = 0              # leading layers with a dense FFN
+    attn_gate = False               # a = a * sigmoid(h W_g) before W_o
+    rope_local_only = False         # RoPE on attn_local layers; global NoPE
+
     # --- derived ------------------------------------------------------------
 
     @property
@@ -147,19 +172,37 @@ class ArchConfig:
             return self.vocab          # tiny vocab: replicated, no padding
         return -(-self.vocab // multiple) * multiple
 
+    @property
+    def norm_plus_one(self) -> bool:
+        """RMSNorm scales as (1 + w), gemma's convention, which the
+        reference ties to ``embed_scale``."""
+        return self.embed_scale
+
     def layer_kinds(self) -> Tuple[str, ...]:
         p = self.pattern
         return tuple(p[i % len(p)] for i in range(self.n_layers))
 
     @property
+    def lead_kinds(self) -> Tuple[str, ...]:
+        """The leading dense-FFN layers (unrolled, before the units)."""
+        return self.layer_kinds()[:self.n_dense_layers]
+
+    @property
+    def unit_pattern(self) -> Tuple[str, ...]:
+        """The layer kinds of one stacked unit: the pattern from the phase
+        at which the units start, after the leading layers."""
+        s = self.n_dense_layers % len(self.pattern)
+        return self.pattern[s:] + self.pattern[:s] if s else self.pattern
+
+    @property
     def n_units(self) -> int:
-        return self.n_layers // len(self.pattern)
+        return (self.n_layers - self.n_dense_layers) // len(self.pattern)
 
     @property
     def tail_kinds(self) -> Tuple[str, ...]:
         """Layers after the last whole pattern unit (unrolled, not scanned)."""
-        rem = self.n_layers % len(self.pattern)
-        return tuple(self.pattern[i] for i in range(rem))
+        rem = (self.n_layers - self.n_dense_layers) % len(self.pattern)
+        return self.unit_pattern[:rem]
 
     def microbatch_for(self, shape_name: str) -> int:
         return dict(self.microbatches).get(shape_name, 1)
@@ -174,7 +217,7 @@ class ArchConfig:
             n += self.vocab_padded() * d                  # embed
         if not self.tie_embeddings:
             n += d * self.vocab_padded()                  # lm head
-        for kind in self.layer_kinds():
+        for layer, kind in enumerate(self.layer_kinds()):
             n += d                                        # pre-norm
             if self.sandwich_norm:
                 n += d
@@ -186,6 +229,8 @@ class ArchConfig:
                     n += (hp + 2 * self.n_kv_heads) * hd
                 if self.qk_norm:
                     n += 2 * hd
+                if self.attn_gate:
+                    n += d * hp * hd
             elif kind == "recurrent":
                 w = self.lru_width_
                 n += 2 * d * w + w * d                    # in x2, out
@@ -202,7 +247,7 @@ class ArchConfig:
             n += d                                        # ffn pre-norm
             if self.sandwich_norm:
                 n += d
-            if self.moe is not None:
+            if self.moe is not None and layer >= self.n_dense_layers:
                 m = self.moe
                 n += d * m.n_experts                      # router
                 per = (2 if self.gated else 1) * d * m.d_ff_expert \
@@ -225,12 +270,28 @@ class ArchConfig:
         m = self.moe
         per = ((2 if self.gated else 1) * self.d_model * m.d_ff_expert
                + m.d_ff_expert * self.d_model)
-        inactive = (m.n_experts - m.top_k) * per * self.n_layers
+        inactive = (m.n_experts - m.top_k) * per * (self.n_layers
+                                                    - self.n_dense_layers)
         return self.param_count() - inactive
 
     def model_flops_per_token(self) -> float:
         """6*N_active per token (the §Roofline MODEL_FLOPS convention)."""
         return 6.0 * self.active_param_count()
+
+
+@dataclasses.dataclass(frozen=True)
+class PortArchConfig(ArchConfig):
+    """An architecture the port runs that the reference does not: the
+    features ``ArchConfig`` keeps off as class attributes are fields here.
+    Its RMSNorm is the plain x * w whatever ``embed_scale``."""
+
+    n_dense_layers: int = 0
+    attn_gate: bool = False
+    rope_local_only: bool = False
+
+    @property
+    def norm_plus_one(self) -> bool:
+        return False
 
 
 def reduced(cfg: ArchConfig, **over) -> ArchConfig:

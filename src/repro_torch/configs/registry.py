@@ -1,5 +1,7 @@
 """Registry of the LM architectures the port runs: all ten of the
-reference's.
+reference's (``ARCH_NAMES``, the grid of ``cells()``), and those the port
+runs beyond them (``PORT_ONLY``), which ``get`` and ``get_smoke`` resolve
+alike.
 
 ``cells()`` enumerates the (arch x input-shape) grid with per-cell
 applicability, as the reference's registry does:
@@ -31,6 +33,12 @@ _MODULES = {
 
 ARCH_NAMES: Tuple[str, ...] = tuple(_MODULES)
 
+# architectures the reference has not: off the (arch x shape) grid
+_PORT_ONLY = {
+    "trinity-mini": "repro_torch.configs.trinity_mini",
+}
+PORT_ONLY: Tuple[str, ...] = tuple(_PORT_ONLY)
+
 # archs whose every layer is O(T) or windowed => long_500k runnable
 SUBQUADRATIC = ("recurrentgemma-9b", "rwkv6-3b")
 # encoder-only => no decode step
@@ -38,9 +46,11 @@ ENCODER_ONLY = ("hubert-xlarge",)
 
 
 def _module(name: str):
-    if name not in _MODULES:
-        raise KeyError(f"unknown arch {name!r}; one of {ARCH_NAMES}")
-    return importlib.import_module(_MODULES[name])
+    path = _MODULES.get(name) or _PORT_ONLY.get(name)
+    if path is None:
+        raise KeyError(f"unknown arch {name!r}; one of "
+                       f"{ARCH_NAMES + PORT_ONLY}")
+    return importlib.import_module(path)
 
 
 def get(name: str) -> ArchConfig:

@@ -160,7 +160,7 @@ def serve_lm(args) -> np.ndarray:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=registry.ARCH_NAMES,
+    ap.add_argument("--arch", choices=registry.ARCH_NAMES + registry.PORT_ONLY,
                     help="LM prefill + greedy decode with seeded weights")
     ap.add_argument("--mobilenet", action="store_true",
                     help="batch-size throughput sweep of the int8 "

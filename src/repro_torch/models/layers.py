@@ -51,21 +51,24 @@ Params = Dict[str, Any]
 # ---------------------------------------------------------------------------
 
 
-def rms_norm(x, scale, *, eps: float = 1e-6, zero_centered: bool = False):
-    """RMSNorm in f32 (gemma-style optional (1+scale) parameterization). On
-    a DTensor whose last dim is whole, on local shards: one ``local_map``
-    in place of seven DTensor ops."""
+def rms_norm(x, scale, *, eps: float = 1e-6, zero_centered: bool = False,
+             dtype=None):
+    """RMSNorm in f32 (gemma-style optional (1+scale) parameterization),
+    returned in ``dtype`` (default x's). On a DTensor whose last dim is
+    whole, on local shards: one ``local_map`` in place of seven DTensor
+    ops."""
     if isinstance(x, DTensor) and not any(
             p.is_shard(x.dim() - 1) for p in x.placements):
         return local_call(
             lambda xl, sl: (rms_norm(xl, sl, eps=eps,
-                                     zero_centered=zero_centered),),
+                                     zero_centered=zero_centered,
+                                     dtype=dtype),),
             (list(x.placements),), x, placed(scale, None))[0]
     x32 = x.float()
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     s = (1.0 + scale.float()) if zero_centered else scale.float()
-    return (y * s).to(x.dtype)
+    return (y * s).to(dtype or x.dtype)
 
 
 def init_rms(d: int, device=None) -> torch.Tensor:
@@ -83,7 +86,7 @@ def init_rms(d: int, device=None) -> torch.Tensor:
 # to), RG-LRU's gates, temporal conv and Lambda, RWKV6's decay, bonus and
 # ln_x.
 F32_LEAVES = frozenset({
-    "router",
+    "router", "route_bias",
     "conv_w", "conv_b", "w_a", "b_a", "w_x", "b_x", "lambda",
     "decay_A", "decay_B", "decay_base", "bonus_u", "ln_x"})
 
@@ -279,10 +282,28 @@ def init_attention(gen: torch.Generator, cfg: ArchConfig, device=None,
     if cfg.qk_norm:
         p["q_norm"] = init_rms(hd, device)
         p["k_norm"] = init_rms(hd, device)
+    if cfg.attn_gate:
+        p["wg"] = padh(normal((d, h, hd), scale), 1)
     return p
 
 
-def _project_qkv(x, p, cfg: ArchConfig, positions):
+def _rotates(cfg: ArchConfig, local: bool) -> bool:
+    """Whether a layer applies RoPE: every layer, or with
+    ``rope_local_only`` the ``attn_local`` layers alone (global NoPE)."""
+    return local or not cfg.rope_local_only
+
+
+def _output(o, x, p, cfg: ArchConfig):
+    """The attention's output projection of o (B, T, H, hd); with
+    ``attn_gate`` each head's output first times sigmoid(x W_g), x the
+    attention's input."""
+    if cfg.attn_gate:
+        o = o * torch.sigmoid(torch.einsum("btd,dhk->bthk", x,
+                                           p["wg"].to(x.dtype)))
+    return torch.einsum("bthk,hkd->btd", o, p["wo"].to(x.dtype))
+
+
+def _project_qkv(x, p, cfg: ArchConfig, positions, rope: bool = True):
     dt = x.dtype
     q = torch.einsum("btd,dhk->bthk", x, p["wq"].to(dt))
     k = torch.einsum("btd,dhk->bthk", x, p["wk"].to(dt))
@@ -294,6 +315,8 @@ def _project_qkv(x, p, cfg: ArchConfig, positions):
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], eps=cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], eps=cfg.norm_eps)
+    if not rope:
+        return q, k, v
     hd = cfg.head_dim_
     q = apply_rope(q, positions, head_dim=hd, fraction=cfg.rope_fraction,
                    theta=cfg.rope_theta)
@@ -329,11 +352,11 @@ def attention_layer(x, p, cfg: ArchConfig, *, local: bool,
     b, t, _ = x.shape
     if positions is None:
         positions = torch.arange(t, device=x.device)[None].repeat(b, 1)
-    q, k, v = _project_qkv(x, p, cfg, positions)
+    q, k, v = _project_qkv(x, p, cfg, positions, _rotates(cfg, local))
     k, v = _kv_for(k, v, cfg, heads)
     o = ffnlib.remat_core(_attend, remat)(q, k, v, positions, cfg,
                                           local=local)
-    return torch.einsum("bthk,hkd->btd", o, p["wo"].to(x.dtype))
+    return _output(o, x, p, cfg)
 
 
 # --- KV cache ---------------------------------------------------------------
@@ -362,7 +385,7 @@ def attention_prefill(x, p, cfg: ArchConfig, cache, *, local: bool,
         return out, cache
     b, t, _ = x.shape
     positions = torch.arange(t, device=x.device)[None].repeat(b, 1)
-    q, k, v = _project_qkv(x, p, cfg, positions)
+    q, k, v = _project_qkv(x, p, cfg, positions, _rotates(cfg, local))
     size = heads.cache_len if heads is not None else cache["k"].shape[1]
     if t >= size:   # keep last `size` keys, aligned to the ring phase
         start = t - size
@@ -377,8 +400,7 @@ def attention_prefill(x, p, cfg: ArchConfig, cache, *, local: bool,
     _write_rows(cache["v"], rows_v, 0, seq_off)
     k, v = _kv_for(k, v, cfg, heads)
     o = _attend(q, k, v, positions, cfg, local=local)
-    out = torch.einsum("bthk,hkd->btd", o, p["wo"].to(x.dtype))
-    return out, cache
+    return _output(o, x, p, cfg), cache
 
 
 def attention_decode(x, p, cfg: ArchConfig, cache, pos: int, *, local: bool,
@@ -402,7 +424,7 @@ def attention_decode(x, p, cfg: ArchConfig, cache, pos: int, *, local: bool,
         return out, cache
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.long, device=x.device)
-    q, k, v = _project_qkv(x, p, cfg, positions)
+    q, k, v = _project_qkv(x, p, cfg, positions, _rotates(cfg, local))
     ck, cv = cache["k"], cache["v"]
     size = heads.cache_len if heads is not None else ck.shape[1]
     seq_off = heads.seq_off if heads is not None else 0
@@ -424,8 +446,7 @@ def attention_decode(x, p, cfg: ArchConfig, cache, pos: int, *, local: bool,
         o = _decode_seq_sharded(q, ck, cv, valid, cfg, heads)
     else:
         o = _decode_grouped(q, *_kv_for(ck, cv, cfg, heads), valid, cfg)
-    out = torch.einsum("bthk,hkd->btd", o, p["wo"].to(x.dtype))
-    return out, cache
+    return _output(o, x, p, cfg), cache
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,10 @@ A model is assembled from an ``ArchConfig``: the layer *pattern* (for
 recurrentgemma, ``("recurrent", "recurrent", "attn_local")``) repeats over
 ``n_layers``. Whole pattern units keep the reference's parameter layout,
 each leaf stacked on a leading ``n_units`` axis, and run in a Python loop
-(the reference's ``lax.scan``); remainder layers are the "tail".
+(the reference's ``lax.scan``); remainder layers are the "tail". An
+architecture with leading dense-FFN layers (``n_dense_layers``, ahead of
+its MoE layers) holds them unstacked as the "lead", and its units start
+after them (``cfg.unit_pattern``).
 
 Every layer is a pre-norm residual pair (with gemma2's sandwich norms)
 
@@ -102,9 +105,10 @@ def init_ffn(gen: torch.Generator, cfg: ArchConfig, device=None,
 
 
 def init_layer(gen: torch.Generator, kind: str, cfg: ArchConfig, device=None,
-               dtype=torch.float32) -> Params:
+               dtype=torch.float32, dense: bool = False) -> Params:
     """One layer's weights; norm scales and ``layers.F32_LEAVES`` are f32
-    whatever ``dtype``."""
+    whatever ``dtype``. ``dense``: a dense FFN whatever ``cfg.moe`` (a
+    leading layer)."""
     p: Params = {"norm1": L.init_rms(cfg.d_model, device),
                  "norm2": L.init_rms(cfg.d_model, device)}
     if cfg.sandwich_norm:
@@ -120,7 +124,7 @@ def init_layer(gen: torch.Generator, kind: str, cfg: ArchConfig, device=None,
         raise ValueError(f"unknown layer kind {kind!r}")
     if kind == "rwkv":
         p["sub2"] = {}                  # channel-mix params live in sub1
-    elif cfg.moe is not None:
+    elif cfg.moe is not None and not dense:
         p["sub2"] = moe_mod.init_moe(gen, cfg, device, dtype)
     else:
         p["sub2"] = init_ffn(gen, cfg, device, dtype)
@@ -132,19 +136,22 @@ def init_layer(gen: torch.Generator, kind: str, cfg: ArchConfig, device=None,
 # ---------------------------------------------------------------------------
 
 
-def _norm(x, s, cfg):
-    return L.rms_norm(x, s, eps=cfg.norm_eps, zero_centered=cfg.embed_scale)
+def _norm(x, s, cfg, dtype=None):
+    """RMSNorm of x, returned in ``dtype`` (default x's)."""
+    return L.rms_norm(x, s, eps=cfg.norm_eps, zero_centered=cfg.norm_plus_one,
+                      dtype=dtype)
 
 
-def _sub2(h, p, kind: str, cfg: ArchConfig, cache=None):
+def _sub2(h, p, kind: str, cfg: ArchConfig, cache=None, layer=None):
     """The second half's block on the normed h: (y, aux, cache). rwkv's
     channel-mix carries its last token in the cache; aux is an MoE layer's
-    load-balance loss and None for every other block."""
+    load-balance loss and None for every other block. A leading dense
+    layer of an MoE model has no router."""
     if kind == "rwkv":
         y, cache = rwkv.channel_mix(h, p["sub1"], cfg, cache)
         return y, None, cache
-    if cfg.moe is not None:
-        y, aux = moe_mod.moe_layer(h, p["sub2"], cfg)
+    if cfg.moe is not None and "router" in p["sub2"]:
+        y, aux = moe_mod.moe_layer(h, p["sub2"], cfg, layer)
         return y, aux, cache
     return ffnlib.ffn_apply(h, p["sub2"], gated=cfg.gated, act_name=cfg.act,
                             impl=cfg.block_impl, chunk=cfg.ffn_chunk), None, \
@@ -152,16 +159,19 @@ def _sub2(h, p, kind: str, cfg: ArchConfig, cache=None):
 
 
 def _residual(x, y, p, post: str, cfg: ArchConfig):
+    """x plus the block's y (a dropless MoE layer's is f32), normed with
+    sandwich norms, in x's dtype."""
     if cfg.sandwich_norm:
-        y = _norm(y, p[post], cfg)
+        y = _norm(y, p[post], cfg, x.dtype)
     return x + y
 
 
-def _second_half(x, p, kind, cfg: ArchConfig, cache=None, remat="none"):
+def _second_half(x, p, kind, cfg: ArchConfig, cache=None, remat="none",
+                 layer=None):
     """(x, aux, cache) after the second residual pair; under ``zero_buffer``
     its block is recomputed in the backward pass."""
     y, aux, cache = ffnlib.remat_core(_sub2, remat)(
-        _norm(x, p["norm2"], cfg), p, kind, cfg, cache)
+        _norm(x, p["norm2"], cfg), p, kind, cfg, cache, layer)
     return _residual(x, y, p, "post_norm2", cfg), aux, cache
 
 
@@ -203,13 +213,14 @@ def layer_prefill(x, p, kind, cfg, cache, layer: int):
     """Returns (x, cache): the attention layers' KV cache is written in
     place; the recurrent and rwkv layers return new state, which the
     caller stores. Spans (``runtime.trace``, ``layer`` the layer's index
-    as their arg): an attention layer's attention ``lm.attention`` and the
-    second residual pair ``lm.ffn``."""
+    as their arg): an attention layer's attention ``lm.attention`` (with
+    ``local``, 1 on a windowed layer) and the second residual pair
+    ``lm.ffn``."""
     h = _norm(x, p["norm1"], cfg)
     if kind in ATTN_KINDS:
         with trace.span("lm.attention") as rec:
             if rec is not None:
-                rec.args["layer"] = layer
+                rec.args.update(layer=layer, local=int(kind == "attn_local"))
             y, cache = L.attention_prefill(h, p["sub1"], cfg, cache,
                                            local=(kind == "attn_local"))
     elif kind == "recurrent":
@@ -220,7 +231,7 @@ def layer_prefill(x, p, kind, cfg, cache, layer: int):
     with trace.span("lm.ffn") as rec:
         if rec is not None:
             rec.args["layer"] = layer
-        x, _, cache = _second_half(x, p, kind, cfg, cache)
+        x, _, cache = _second_half(x, p, kind, cfg, cache, layer=layer)
     return x, cache
 
 
@@ -230,7 +241,7 @@ def layer_decode(x, p, kind, cfg, cache, pos: int, layer: int):
     if kind in ATTN_KINDS:
         with trace.span("lm.attention") as rec:
             if rec is not None:
-                rec.args["layer"] = layer
+                rec.args.update(layer=layer, local=int(kind == "attn_local"))
             y, cache = L.attention_decode(h, p["sub1"], cfg, cache, pos,
                                           local=(kind == "attn_local"))
     elif kind == "recurrent":
@@ -241,7 +252,7 @@ def layer_decode(x, p, kind, cfg, cache, pos: int, layer: int):
     with trace.span("lm.ffn") as rec:
         if rec is not None:
             rec.args["layer"] = layer
-        x, _, cache = _second_half(x, p, kind, cfg, cache)
+        x, _, cache = _second_half(x, p, kind, cfg, cache, layer=layer)
     return x, cache
 
 
@@ -257,7 +268,7 @@ def _stacked_units(gen, cfg: ArchConfig, device, dtype, keep) -> Params:
     def unit():
         return keep("units", {str(i): init_layer(gen, kind, cfg, device,
                                                  dtype)
-                              for i, kind in enumerate(cfg.pattern)})
+                              for i, kind in enumerate(cfg.unit_pattern)})
 
     def alloc(node):
         if isinstance(node, Mapping):
@@ -322,6 +333,10 @@ def _init(cfg: ArchConfig, gen, dev, dtype, local=None) -> Params:
     if cfg.frontend != "audio":   # audio: precomputed frames, no embedding
         p["embed"] = keep("embed", L.normal_leaf(gen, "embed", (vp, d),
                                                  d ** -0.5, dev, dt))
+    if cfg.lead_kinds:
+        p["lead"] = {str(i): keep(f"lead{tree.SEP}{i}",
+                                  init_layer(gen, kind, cfg, dev, dt, True))
+                     for i, kind in enumerate(cfg.lead_kinds)}
     if cfg.n_units > 0:
         p["units"] = _stacked_units(gen, cfg, dev, dt, keep)
     if cfg.tail_kinds:
@@ -384,8 +399,10 @@ def _layers(params: Params, cfg: ArchConfig):
     ``unbind`` per leaf (one DTensor op per leaf, not per unit and leaf)."""
     units = (_unbind_units(params, cfg)
              if isinstance(params["final_norm"], DTensor) else None)
+    for i, kind in enumerate(cfg.lead_kinds):
+        yield params["lead"][str(i)], kind, ("lead", None, str(i))
     for u in range(cfg.n_units):
-        for i, kind in enumerate(cfg.pattern):
+        for i, kind in enumerate(cfg.unit_pattern):
             p = units[u][str(i)] if units else _unit_layer(params, u, i)
             yield p, kind, ("units", u, str(i))
     for i, kind in enumerate(cfg.tail_kinds):
@@ -496,12 +513,14 @@ def _run_layers(x, params, cfg: ArchConfig):
     mode = cfg.remat if torch.is_grad_enabled() else "none"
 
     def unit(x, aux, unit_p):
-        for i, kind in enumerate(cfg.pattern):
+        for i, kind in enumerate(cfg.unit_pattern):
             x, aux = layer_apply(x, unit_p[str(i)], kind, cfg, aux, mode)
         return x, aux
 
     run_unit = ffnlib.apply_remat(unit, mode)
     aux = None
+    for i, kind in enumerate(cfg.lead_kinds):
+        x, aux = layer_apply(x, params["lead"][str(i)], kind, cfg, aux)
     for unit_p in _unbind_units(params, cfg):
         x = constrain(x, "B", None, None)     # pin the unit-carry layout
         x, aux = run_unit(x, aux, unit_p)
@@ -625,9 +644,13 @@ class _AllReduceSum(torch.autograd.Function):
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> Params:
     cache: Params = {}
+    if cfg.lead_kinds:
+        cache["lead"] = {str(i): init_layer_cache(cfg, kind, batch, max_len,
+                                                  dtype, device)
+                         for i, kind in enumerate(cfg.lead_kinds)}
     if cfg.n_units > 0:
         cache["units"] = {}
-        for i, kind in enumerate(cfg.pattern):
+        for i, kind in enumerate(cfg.unit_pattern):
             one = init_layer_cache(cfg, kind, batch, max_len, dtype, device)
             cache["units"][str(i)] = {
                 k: torch.zeros((cfg.n_units,) + tuple(a.shape),
@@ -666,7 +689,8 @@ def _layer_cache(cache: Params, key) -> Params:
 def _layer_caches(cache: Params, cfg: ArchConfig):
     """``_layer_cache`` of every layer, {key: views}; a stacked DTensor
     leaf is split by one ``unbind``."""
-    out = {("tail", None, i): c for i, c in cache.get("tail", {}).items()}
+    out = {(group, None, i): c for group in ("lead", "tail")
+           for i, c in cache.get(group, {}).items()}
     for i, c in cache.get("units", {}).items():
         pieces = {k: torch.unbind(a) if isinstance(a, DTensor) else a
                   for k, a in c.items()}

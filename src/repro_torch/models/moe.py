@@ -1,5 +1,6 @@
 """Mixture-of-Experts FFN with capacity-based scatter dispatch (port of
-``repro.models.moe``, single device).
+``repro.models.moe``, single device), and the dropless sigmoid-routed layer
+of the port's own MoE architectures (``SigmoidMoESpec``).
 
 Expert weights are stacked on a leading ``experts`` axis. Dispatch avoids the
 O(T x E x C) one-hot einsum of the classic GShard formulation: the position
@@ -14,6 +15,19 @@ goes through
 The router runs in f32 against its f32 weights (``layers.F32_LEAVES``); a
 Switch-style auxiliary load-balance loss (E * sum(f_e * p_e)) is returned
 to the caller.
+
+A sigmoid-routed layer (``SigmoidMoESpec``) is dropless: it routes by
+sigmoid scores, the top-k of the scores plus the selection bias
+``route_bias`` picking the experts and the unbiased scores, normalized and
+times ``route_scale``, weighting them; ``experts`` then computes every
+assignment: the assignments grouped by expert (a stable sort), one
+product per group, the groups' offsets on the device (``torch._grouped_mm``
+on a card, a loop over the groups on the CPU), so nothing waits on the
+host; no capacity, no drop slot. Spans: ``moe.layer`` (args: layer,
+tokens, assignments) around ``moe.route``, ``moe.dispatch`` (its counters
+from device values, read after the profile: experts hit, the largest
+load, and the assignments the grouped products do not compute with their
+own expert), ``moe.experts`` and ``moe.combine``.
 
 On a mesh (``_moe_sharded``) the layout is the reference's pins: experts
 over ``model``, capacity over ``data``. Every rank sees all tokens' routes
@@ -33,9 +47,14 @@ from torch.distributed.tensor import DTensor, Partial, Replicate
 from repro_torch.configs.base import ArchConfig, MoESpec
 from repro_torch.core import fused_ffn as ffnlib
 from repro_torch.kernels.ref import ACTS
+from repro_torch.kernels.fused_dsc import on_card
 from repro_torch.models.layers import normal_leaf
+from repro_torch.runtime import trace
 from repro_torch.runtime.actctx import (local_call, local_rank, mesh_size,
                                         placed, sharded_on)
+
+# the scale of the seeded selection bias of a sigmoid-routed layer
+ROUTE_BIAS_SCALE = 0.05
 
 Params = Dict[str, Any]
 
@@ -51,6 +70,8 @@ def init_moe(gen: torch.Generator, cfg: ArchConfig, device=None,
         return normal_leaf(gen, name, shape, scale, device, dtype)
 
     p = {"router": normal("router", (d, e), d ** -0.5)}
+    if m.score_func == "sigmoid":
+        p["route_bias"] = normal("route_bias", (e,), ROUTE_BIAS_SCALE)
     if cfg.gated:
         p["w_gate"] = normal("w_gate", (e, d, fe), d ** -0.5)
     p["w_up"] = normal("w_up", (e, d, fe), d ** -0.5)
@@ -72,7 +93,15 @@ def capacity(n_tokens: int, m: MoESpec) -> int:
 
 
 def _route(xf, p: Params, m: MoESpec):
-    """(probs (n, E), gates (n, k), ids (n, k)), all from f32 logits."""
+    """(probs (n, E), gates (n, k), ids (n, k)), all from f32 logits; with
+    sigmoid scores, the probs are the scores, the ids the top-k of the
+    scores plus the selection bias, and the gates the unbiased scores of
+    those, normalized and times ``route_scale``."""
+    if m.score_func == "sigmoid":
+        s = torch.sigmoid(xf.float() @ p["router"])
+        ids = torch.topk(s + p["route_bias"], m.top_k, dim=-1)[1]
+        gates = s.gather(-1, ids)
+        return s, gates * (m.route_scale / gates.sum(-1, keepdim=True)), ids
     probs = torch.softmax(xf.float() @ p["router"], dim=-1)
     gates, ids = torch.topk(probs, m.top_k, dim=-1)
     if m.top_k > 1:
@@ -103,12 +132,15 @@ def _aux(probs, ids, m: MoESpec):
     return e * torch.sum(f_e * probs.mean(dim=0)) * m.router_aux_weight
 
 
-def moe_layer(x, p: Params, cfg: ArchConfig) -> Tuple[torch.Tensor,
-                                                      torch.Tensor]:
-    """x: (B, T, D) -> (y, aux_loss)."""
+def moe_layer(x, p: Params, cfg: ArchConfig, layer=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, T, D) -> (y, aux_loss). ``layer``: the layer's index, the
+    arg of a dropless layer's span."""
     if isinstance(x, DTensor):
         return _moe_sharded(x, p, cfg)
     m = cfg.moe
+    if m.score_func == "sigmoid":
+        return _moe_dropless(x, p, cfg, layer)
     b, t, d = x.shape
     n, dt = b * t, x.dtype
     xf = x.reshape(n, d)
@@ -125,6 +157,102 @@ def moe_layer(x, p: Params, cfg: ArchConfig) -> Tuple[torch.Tensor,
 
 
 _EXPERTS = ("w_gate", "w_up", "w_down")
+
+
+def _moe_dropless(x, p: Params, cfg: ArchConfig, layer):
+    """The dropless sigmoid-routed layer: the span ``moe.layer``. The router
+    reads x cast to f32, the experts take it in ``cfg.dtype``; the routed
+    sum is f32, the shared expert's added to it. Its aux is 0: the
+    selection bias, not a loss, balances the experts."""
+    m = cfg.moe
+    b, t, d = x.shape
+    n, dt = b * t, getattr(torch, cfg.dtype)
+    xf = x.reshape(n, d)
+    with trace.span("moe.layer") as rec:
+        if rec is not None:
+            rec.args.update(layer=layer, tokens=n, assignments=n * m.top_k)
+        with trace.span("moe.route"):
+            _, gates, ids = _route(xf, p, m)
+        xf = xf.to(dt)
+        y = experts(xf, ids, gates, p["w_gate"].to(dt), p["w_up"].to(dt),
+                    p["w_down"].to(dt), act=cfg.act)
+        if m.shared_d_ff:
+            y = y + ffnlib.ffn_apply(xf, p["shared"], gated=cfg.gated,
+                                     act_name=cfg.act, impl=cfg.block_impl,
+                                     chunk=cfg.ffn_chunk)
+    return y.reshape(b, t, d), xf.new_zeros((), dtype=torch.float32)
+
+
+def experts(xf, ids, gates, w_gate, w_up, w_down, *, act: str = "silu"):
+    """The routed experts' gated SwiGLU sum for tokens xf (n, d), routed
+    to ids (n, k) with f32 gates (n, k), from the stacked experts w_gate,
+    w_up (E, d, f) and w_down (E, f, d): every assignment computed
+    (dropless). The assignments are grouped by expert (a stable sort,
+    tokens in order within a group), each group's products run on its
+    rows (``_grouped``), each row's hidden is scaled by its gate (in xf's
+    dtype) before the down product, and each token's k rows are summed in
+    f32. Returns (n, d) in f32. Spans
+    ``moe.dispatch``, ``moe.experts``, ``moe.combine``; no host
+    synchronisation on a card."""
+    n, d = xf.shape
+    k = ids.shape[1]
+    flat = ids.reshape(-1)
+    with trace.span("moe.dispatch") as rec:
+        sid, order = torch.sort(flat, stable=True)
+        counts = torch.zeros(w_up.shape[0], dtype=torch.int64,
+                             device=xf.device).scatter_add_(
+            0, flat, torch.ones_like(flat))
+        offs = _offsets(counts)
+        rows = xf[order // k]                                  # (n * k, d)
+        if rec is not None:
+            rec.args.update(tokens=n, assignments=n * k)
+            rec.later = COUNTERS, _counters(sid, counts, offs)
+    with trace.span("moe.experts"):
+        h = ACTS[act](_grouped(rows, w_gate, offs)) * _grouped(rows, w_up,
+                                                               offs)
+        h = h * gates.reshape(-1)[order, None].to(h.dtype)
+        out = _grouped(h, w_down, offs)                        # (n * k, d)
+    with trace.span("moe.combine"):
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(n * k, device=xf.device)
+        return out[inv].view(n, k, d).sum(1, dtype=torch.float32)
+
+
+def _offsets(counts):
+    """The end of each expert's group of sorted rows: the running sum of
+    the per-expert counts, int32 on the device."""
+    return torch.cumsum(counts, 0).to(torch.int32)
+
+
+# a profiled dispatch's counters, read after the profile (``trace``)
+COUNTERS = ("experts_hit", "max_load", "dropped")
+
+
+def _counters(sid, counts, offs):
+    """``COUNTERS`` as one device tensor: the experts with an assignment,
+    the largest count, and the assignments that the grouped products do
+    not compute with their own expert: sorted row r, of expert sid[r],
+    lies outside the rows [offs[e - 1], offs[e]) that ``_grouped`` hands
+    expert e (past offs[-1]: computed by none)."""
+    row = torch.arange(sid.numel(), dtype=offs.dtype, device=sid.device)
+    group = torch.searchsorted(offs, row, right=True)
+    return torch.stack([(counts > 0).sum(), counts.max(),
+                        (group != sid).sum()])
+
+
+def _grouped(a, w, offs):
+    """Rows a (M, K) by groups, group g the rows [offs[g-1], offs[g]) times
+    w[g] (K, N), in a's dtype: one ``torch._grouped_mm`` on a card, whose
+    offsets stay on the device; on the CPU a product per group (its bounds
+    read on the host)."""
+    if on_card(a):
+        return torch._grouped_mm(a, w, offs=offs)
+    out = a.new_empty((a.shape[0], w.shape[2]))
+    lo = 0
+    for g, hi in enumerate(offs.tolist()):
+        out[lo:hi] = a[lo:hi] @ w[g]
+        lo = hi
+    return out
 
 
 def _routed(xf, w: Params, gates, ids, cfg: ArchConfig, e0: int, c0: int,

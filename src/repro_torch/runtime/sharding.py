@@ -34,6 +34,7 @@ from torch.distributed.tensor import (DTensor, Replicate, Shard,
                                       distribute_tensor)
 
 from repro_torch import tree as tree_lib
+from repro_torch.configs.base import PortArchConfig
 
 Tree = Any
 Spec = Tuple[Any, ...]
@@ -181,8 +182,20 @@ def param_specs(abstract_params: Tree, mesh) -> Tree:
 # ---------------------------------------------------------------------------
 
 
+def check_meshable(cfg) -> None:
+    """Refuse an architecture the reference does not run: its rules here
+    are the reference's, and no mesh has run it (ROADMAP, Queue 4, C1: the
+    mesh across cards)."""
+    if isinstance(cfg, PortArchConfig):
+        raise NotImplementedError(
+            f"{cfg.name}: the mesh path runs only the reference's ten "
+            f"architectures; sharding this one is ROADMAP C1's (the mesh "
+            f"across cards)")
+
+
 def batch_specs(cfg, mesh, batch_abstract: Tree) -> Tree:
     """Shard every batch tensor on its leading (global-batch) dim."""
+    check_meshable(cfg)
     da = _batch_entry(mesh)
     dsize = mesh_axis_size(mesh, da)
 
@@ -197,6 +210,7 @@ def cache_specs(cfg, mesh, cache_abstract: Tree) -> Tree:
     """KV/state caches: batch dim sharded; kv-head dim sharded over model
     when divisible, else the sequence dim (so a 32k cache of a 72B model
     does not sit whole on every device). Stacked (units) axis -> None."""
+    check_meshable(cfg)
     da = _batch_entry(mesh)
     dsize = mesh_axis_size(mesh, da)
     msize = mesh_axis_size(mesh, "model")

@@ -106,6 +106,7 @@ def train_state_shardings(cfg: ArchConfig, mesh, train: TrainSpec,
                           ) -> TrainState:
     """The state's spec tree: params, moments and residuals by
     ``sharding.param_specs``, the counters replicated."""
+    shd.check_meshable(cfg)
     abstract = abstract or abstract_train_state(cfg, train)
     pspecs = shd.param_specs(abstract.params, mesh)
     return TrainState(

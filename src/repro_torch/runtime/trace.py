@@ -23,6 +23,12 @@ than without: records it counted made it pause for tenths of a second in a
 profiled window. ``records()`` returns them as ``Record``s. The store keeps
 the newest ``CAP`` records. Spans read no tensor and launch nothing:
 outputs are the same bit for bit with a profile running and without.
+
+Counters that are device values go into the span's ``later``: a pair of
+their names and one tensor of their values (None until the body sets it),
+kept beside the record as it is and read into its args by ``records()``
+after the window, so that no span waits on the device. One tensor a span
+keeps the objects the garbage collector tracks to one a counted span.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ _OFF = _Off()
 # index, name, start_ns, end_ns, parent (-1: none), repr(args) ('' if none)
 _FIELDS = 6
 _store: collections.deque = collections.deque(maxlen=_FIELDS * CAP)
+_later: collections.deque = collections.deque(maxlen=CAP)  # (index, later)
 _index = itertools.count()
 _local = threading.local()
 
@@ -79,15 +86,17 @@ def span(name: str):
     """A context manager that records ``name`` while a profile runs. Its
     ``as`` target, None when off, holds the span's ``index`` and its
     ``args``, a dict the body fills: numbers, strings, booleans and tuples
-    of them. Args are given there, never as keyword arguments of ``span``,
-    whose dict would cost every call."""
+    of them; and ``later``, where the body may put (names, a 1-D device
+    tensor of their values), args read after the profile. Args are given there, never as
+    keyword arguments of ``span``, whose dict would cost every call."""
     if not _profiler._is_profiler_enabled:
         return _OFF
     return _Span(name)
 
 
 class _Span:
-    __slots__ = ("index", "name", "parent", "args", "start_ns", "fn")
+    __slots__ = ("index", "name", "parent", "args", "later", "start_ns",
+                 "fn")
 
     def __init__(self, name: str):
         stack = _stack()
@@ -95,6 +104,7 @@ class _Span:
         self.name = name
         self.parent = stack[-1] if stack else None
         self.args = {}
+        self.later = None
         self.fn = torch._C._profiler._RecordFunctionFast(PREFIX + name)
 
     def __enter__(self) -> "_Span":
@@ -108,6 +118,8 @@ class _Span:
         _store.extend((self.index, self.name, self.start_ns, time.time_ns(),
                        -1 if self.parent is None else self.parent,
                        repr(self.args) if self.args else ""))
+        if self.later:
+            _later.append((self.index, self.later))
         _stack().pop()
 
 
@@ -119,15 +131,20 @@ def _stack() -> list:
 
 
 def records(name: Optional[str] = None) -> List[Record]:
-    """The records kept, in order of entry (only ``name``'s, if given)."""
+    """The records kept, in order of entry (only ``name``'s, if given),
+    each span's ``later`` read into its args."""
     flat = list(_store)
+    later = dict(_later)
     out = []
     for i in range(0, len(flat), _FIELDS):
         index, n, start, end, parent, args = flat[i:i + _FIELDS]
         if name is None or n == name:
+            args = ast.literal_eval(args) if args else {}
+            if index in later:
+                names, values = later[index]
+                args.update(zip(names, values.tolist()))
             out.append(Record(index, n, start, end,
-                              None if parent < 0 else parent,
-                              ast.literal_eval(args) if args else {}))
+                              None if parent < 0 else parent, args))
     out.sort(key=lambda r: r.index)
     return out
 
@@ -135,3 +152,4 @@ def records(name: Optional[str] = None) -> List[Record]:
 def clear() -> None:
     """Forget every record kept."""
     _store.clear()
+    _later.clear()
