@@ -409,20 +409,25 @@ def phase_build():
             1, 64, 64, 1, 1, d).smem_bytes,
             f"flash bf16 shared memory at d {d} != flash_attention.plan")
     # the FFN launcher's plan (shared memory, grid, workspace, ...) is
-    # fused_ffn.plan, at the serve path's shapes and the checks' shapes
+    # fused_ffn.plan, at the serve path's shapes and the checks' shapes, with
+    # the card's resident clusters
     cfg = registry.get("gemma2-9b")
     shapes = [(t, cfg.d_model, cfg.d_ff) for t in (1, 4, 77, 1000, 2048)]
     shapes += [(t, d, f) for t, d, f, *_ in FFN_CASES]
     shapes += served_ffn_shapes()
     for dtype in (torch.bfloat16, torch.float32):
         for t, d, f in shapes:
-            pl = fused_ffn.plan(t, d, f, dtype, n_sm)
-            check(fused_ffn.kernel_plan(t, d, f, dtype, n_sm) == pl.as_tuple(),
+            resident = (fused_ffn.max_active_clusters(t, d, f, n_sm)
+                        if dtype == torch.bfloat16 else 0)
+            pl = fused_ffn.plan(t, d, f, dtype, n_sm, resident)
+            check(fused_ffn.kernel_plan(t, d, f, dtype, n_sm, resident)
+                  == pl.as_tuple(),
                   f"ffn launcher plan != fused_ffn.plan at T {t}, d {d}, "
-                  f"d_ff {f}, {dtype}")
+                  f"d_ff {f}, {dtype}, {resident} resident")
     for t in (2048, 4):
-        pl = fused_ffn.plan(t, cfg.d_model, cfg.d_ff, torch.bfloat16, n_sm)
         resident = fused_ffn.max_active_clusters(t, cfg.d_model, cfg.d_ff, n_sm)
+        pl = fused_ffn.plan(t, cfg.d_model, cfg.d_ff, torch.bfloat16, n_sm,
+                            resident)
         say(f"[build] fused_ffn plan gemma2-9b T {t}: cluster {pl.cluster}, "
             f"{pl.cols} columns per block, chunk {pl.chunk}, {pl.stages} ring "
             f"stages, {pl.groups} d_ff groups, grid {pl.grid}, shared memory "
@@ -433,9 +438,10 @@ def phase_build():
         wide = registry.get(name)
         d_ff = ffn_dims(wide)[0]
         for t in (LM_BATCH * LM_PROMPT, LM_BATCH):
-            pl = fused_ffn.plan(t, wide.d_model, d_ff, torch.bfloat16, n_sm)
             resident = fused_ffn.max_active_clusters(t, wide.d_model, d_ff,
                                                      n_sm)
+            pl = fused_ffn.plan(t, wide.d_model, d_ff, torch.bfloat16, n_sm,
+                                resident)
             say(f"[build] fused_ffn plan {name} T {t}: {pl.slices} d_model "
                 f"slices of a cluster of {pl.cluster}, {pl.cols} columns per "
                 f"block, grid {pl.grid}, {pl.groups} d_ff groups, shared "
@@ -1681,11 +1687,14 @@ def phase_lm_kernel_times(device, launches):
         kern = lambda: ops.ffn(x, wg, wu, wd, act=cfg.act)
         plain = lambda: ref.fused_ffn_ref(x, wg, wu, wd, act=cfg.act)
         err_rel = close(kern(), plain(), BF16_TOL, f"ffn at T {t}")
-        pl = fused_ffn.plan(t, d, f, bf16, n_sm)
-        # prefill: y is all it writes (no workspace, one kernel); decode: the
+        pl = fused_ffn.plan(t, d, f, bf16, n_sm, fused_ffn.max_active_clusters(
+            t, d, f, n_sm))
+        # prefill: y is all it writes (no workspace, one kernel) unless the
+        # plan cuts d_ff to fill the last wave of clusters; decode: the
         # groups' f32 partials, summed in order by a second kernel
-        want_ws = pl.ws_bytes == 0 if phase == "prefill" else (
-            0 < pl.ws_bytes < 0.01 * weight_bytes)
+        want_ws = pl.ws_bytes == (
+            4 * pl.groups * t * d if pl.groups > 1 else 0) if (
+            phase == "prefill") else 0 < pl.ws_bytes < 0.01 * weight_bytes
         check(want_ws, f"ffn {phase}: workspace {pl.ws_bytes} B of "
               f"{weight_bytes} B of weights")
         launches, kernels = launches_per_call(kern)   # 0: not recorded
@@ -1916,7 +1925,8 @@ def ffn_work_factor(t, d, f, gated, n_sm):
     """The operations the bf16 plan does over the ones the FFN needs: the
     expansion once per d_model slice, the projection over every block's
     columns (T's padding to 64 rows not counted)."""
-    pl = fused_ffn.plan(t, d, f, torch.bfloat16, n_sm)
+    pl = fused_ffn.plan(t, d, f, torch.bfloat16, n_sm,
+                        fused_ffn.max_active_clusters(t, d, f, n_sm))
     exp = (2 if gated else 1) * d
     return (pl.slices * exp + pl.grid[0] * pl.cols) / (exp + d)
 
@@ -1963,7 +1973,8 @@ def phase_dense_kernel_vs_plain(device):
                 worst = max(worst, rel) if dtype == torch.bfloat16 else worst
                 n += 1
             del wg, wu, wd
-        pl = fused_ffn.plan(2048, d, f, torch.bfloat16, n_sm)
+        pl = fused_ffn.plan(2048, d, f, torch.bfloat16, n_sm,
+                            fused_ffn.max_active_clusters(2048, d, f, n_sm))
         say(f"[dense-kernel] fused_ffn {name} d_model {d} d_ff {f}: "
             f"{pl.slices} slices of a cluster of {pl.cluster}, "
             f"{pl.cols} columns per block; the plan does "
@@ -2000,10 +2011,10 @@ class MoELoad:
     def __enter__(self):
         self.saved = moe.moe_layer
 
-        def recorded(x, p, cfg):
+        def recorded(x, p, cfg, layer=None):
             if x.shape[1] > 1:
                 self.calls.append(moe.expert_load(x, p, cfg))
-            return self.saved(x, p, cfg)
+            return self.saved(x, p, cfg, layer)
 
         moe.moe_layer = recorded
         return self
@@ -2211,11 +2222,11 @@ def phase_dense_kernel_times(device, runs, names=DENSE_ARCHS, seed=51):
             kern = lambda: ops.ffn(x, wg, wu, wd, act=act)
             plain = lambda: ref.fused_ffn_ref(x, wg, wu, wd, act=act)
             err_rel = close(kern(), plain(), BF16_TOL, f"ffn {name} T {tt}")
-            pl = fused_ffn.plan(tt, d, f, bf16, n_sm)
+            resident = fused_ffn.max_active_clusters(tt, d, f, n_sm)
+            pl = fused_ffn.plan(tt, d, f, bf16, n_sm, resident)
             chain_ms = time_ms(lambda: unfused_chain(x, wg, wu, wd, act),
                                10, 3)
             factor = ffn_work_factor(tt, d, f, gated, n_sm)
-            resident = fused_ffn.max_active_clusters(tt, d, f, n_sm)
             clusters = pl.slices * pl.grid[1] * pl.grid[2]
             waves = -(-clusters // max(resident, 1))
             say(f"[time] fused_ffn {name} {phase} T{tt}: {pl.slices} d_model "

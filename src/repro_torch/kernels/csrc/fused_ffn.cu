@@ -14,9 +14,9 @@
 // block at d_model 3584 (917 KB at 64 rows), so a cluster of C blocks
 // splits it by d_model columns: each block holds 64 rows x 2 NW columns in
 // the registers of two consumer warpgroups (NW columns each; C 8 and NW 224
-// at gemma2-9b, 112 f32 registers per thread). The grid is (C, token tiles
-// of 64 rows, d_ff groups), the cluster (C, 1, 1). Each block walks its
-// group's d_ff in chunks of C x 64 columns:
+// at gemma2-9b, 112 f32 registers per thread; NW 256 at glm4-9b's 4096,
+// 128). The grid is (C, token tiles of 64 rows, d_ff groups), the cluster
+// (C, 1, 1). Each block walks its group's d_ff in chunks of C x 64 columns:
 //   1. expansion: the block computes its own 64-column piece of g and u with
 //      wgmma m64n64k16 over K = d_model (each warpgroup 32 columns of g and
 //      the same 32 of u in one instruction: Wg's and Wu's 32-column boxes
@@ -45,23 +45,28 @@
 // cluster cannot pull the weights fast enough, so the plan splits d_ff into
 // groups (14 at gemma2-9b T 4: 112 blocks); each group writes an f32
 // partial of (T, d_model), and reduce_kernel sums the groups in a fixed
-// order (0.8 MB at T 4, 0.26% of the 308 MB the launch reads).
-// Wider than one cluster covers (8 x 2 x 224 = 3584 columns), the plan cuts
-// d_model into S slices of at most 3584 columns, S = ceil(d_model / 3584): 2
-// at 4096 (glm4-9b) and 5120 (qwen3-14b), 3 at 8192 (qwen2-72b). The grid's
-// x is C x S: block x holds columns [x * 2 NW, (x + 1) * 2 NW), so slice
-// x / C's cluster walks the same d_ff chunks as the others and recomputes
-// their expansion. h still never leaves a cluster, and each output element
-// is still summed by one thread in d_ff order. What that pays: the expansion
+// order (0.8 MB at T 4, 0.26% of the 308 MB the launch reads). At prefill
+// the token tiles' clusters fill the card, `resident` at a time (the caller
+// reads it from the card: fused_ffn_max_clusters), and the launch takes
+// whole waves of them: the plan also cuts d_ff into up to 4 groups where
+// that saves a tenth of the waves x chunks a cluster walks (glm4-9b at T
+// 1500, 15 resident: 24 clusters of 27 chunks in 2 waves, 54; 3 groups, 72
+// clusters of 9 in 5 waves, 45).
+// One cluster covers 8 x 2 x 256 = 4096 columns; NW 256 is taken only at C
+// 8, where 224 does not cover (3585 to 4096 columns), so every plan at
+// d_model <= 3584 is the 224-wide one. Wider, the plan cuts d_model into S
+// slices of at most 4096 columns, S = ceil(d_model / 4096): 2 at 5120
+// (qwen3-14b, llama4; NW 224) and 8192 (qwen2-72b; NW 256). The grid's x is
+// C x S: block x holds columns [x * 2 NW, (x + 1) * 2 NW), so slice x / C's
+// cluster walks the same d_ff chunks as the others and recomputes their
+// expansion. h still never leaves a cluster, and each output element is
+// still summed by one thread in d_ff order. What that pays: the expansion
 // (4/6 of the gated FFN's operations) runs S times, and the projection also
-// runs over the last slice's columns past d_model (4096: none, (C 8, NW 128);
-// 5120 and 8192: NW 224, 7168 and 10752 columns for 5120 and 8192), so 1.67x
-// the operations at 4096, 1.80x at 5120 and 2.44x at 8192; at decode the S
-// slices each read Wg and Wu (through L2 where they run together). The other
-// ways out were worse for a first version: a cluster of 16 is not portable,
-// its residency unknown, and it reaches 7168 columns at width 224; an f32
-// accumulator in shared memory takes 2 MB per 64-row tile at 8192. Every
-// plan at d_model <= 3584 is as before (S = 1, grid x = C).
+// runs over the last slice's columns past d_model (5120: 7168 columns), so
+// 1.80x the operations at 5120 and 1.67x at 8192; at decode the S slices
+// each read Wg and Wu (through L2 where they run together). A cluster of
+// 16 is not portable and its residency unknown; an f32 accumulator in
+// shared memory takes 2 MB per 64-row tile at 8192.
 // Ragged T, d_ff and d_model are zero-filled by the tensor maps: a zero
 // weight column gives h = act(0) * 0 = 0 (gated) or act(0) = 0 (ungated,
 // every act here). Stores past T or d_model are masked.
@@ -70,14 +75,17 @@
 // partials in a workspace and the same fixed-order reduce_kernel.
 //
 // Bound on this card (H100 SXM: 989 TFLOP/s bf16 dense, 3.35 TB/s HBM). At
-// gemma2-9b (d_model 3584, d_ff 14336) prefill, T = 2048, one launch is
-// 0.63 TFLOP (0.64 ms): bound by operations. What this design leaves in the
-// way (PERF.md): each 64-row cluster streams all 308 MB of weights and
-// re-reads its x tile per chunk (12.9 GB through L2 at T 2048); only 15
-// clusters of 8 are resident, so 32 token tiles take three waves; and the
-// per-stage handshake with small (n64) expansion products keeps the tensor
-// cores under half busy even with no loads at all. At decode, T = 4, it
-// reads 308 MB of weights (0.092 ms): bound by bytes.
+// glm4-9b (d_model 4096, d_ff 13696) prefill, T = 1500, one launch is 0.505
+// TFLOP (0.51 ms) and reads 0.34 GB of weights (0.10 ms): bound by
+// operations. What this design leaves in the way (PERF.md): a cluster walks
+// a chunk in about the same time whether 1 or 15 clusters run, so the time
+// is the waves' (15 clusters of 8 resident; T 960 and T 1024 differ by 2x);
+// within a cluster the per-stage handshake with small (n64) expansion
+// products keeps the tensor cores under half busy. The bytes from L2 into
+// shared memory are not the bound: each cluster streams all the weights
+// (10.4 GB a launch at T 1500), and loading each x box once per cluster
+// with TMA multicast (8.5 GB) ran no faster. At decode, T = 4, it reads
+// the 337 MB of weights (0.10 ms): bound by bytes.
 //
 // kernels/fused_ffn.py::plan states each launch (cluster, columns, chunk,
 // ring stages, groups, shared memory, grid, workspace); fused_ffn_plan below
@@ -171,7 +179,10 @@ constexpr uint32_t kDBox = kProjK * kAtom * 2;  // Wd box: 2 KB
 constexpr uint32_t kHPiece = kBT * kPiece * 2;  // one block's h piece: 8 KB
 constexpr int kBarBytes = 8 * (2 * kMaxStages + 2);
 constexpr int kMaxCluster = 8;      // the portable cluster size
-constexpr int kMaxCover = kMaxCluster * 2 * 224;   // d_model one cluster covers
+constexpr int kMaxWidth = 256;      // wgmma's widest N: a full cluster only
+constexpr int kMaxCover = kMaxCluster * 2 * kMaxWidth;   // d_model one cluster
+                                                         // covers
+constexpr int kMaxPrefillGroups = 4;
 
 constexpr int kF32BT = 16;          // f32: token rows per block
 constexpr int kF32Threads = 256;
@@ -198,13 +209,18 @@ int ceil_div(long long a, long long b) {
 
 // The bf16 cluster size and per-warpgroup width for d_model d: the smallest
 // cluster whose blocks' two warpgroups cover d with a width of 32, 64, 128
-// or 224 columns. 0: d is wider than one cluster covers (kMaxCover).
+// or 224 columns, else a cluster of 8 at 256 (3585 to 4096 columns; a
+// smaller cluster at 256 would put a token tile on half the SMs). 0: d is
+// wider than one cluster covers (kMaxCover).
 int pick_width(int d, int* cluster) {
-  static const int kWidths[4] = {32, 64, 128, 224};
+  static const int kWidths[5] = {32, 64, 128, 224, kMaxWidth};
   for (int c = 1; c <= kMaxCluster; c *= 2) {
     const int need = ceil_div(d, 2 * c);
     for (int nw : kWidths)
-      if (need <= nw) { *cluster = c; return nw; }
+      if (need <= nw && (nw < kMaxWidth || c == kMaxCluster)) {
+        *cluster = c;
+        return nw;
+      }
   }
   return 0;
 }
@@ -217,15 +233,38 @@ int pick_slices(int d, int* cluster, int* nw) {
   return slices;
 }
 
-// dtype 1 (bf16) or 0 (f32). Returns 0, or cudaErrorInvalidValue.
-int make_plan(int dtype, int t, int d, int f, int n_sm, LaunchPlan* pl) {
+// Chunks per d_ff group where the clusters of the token tiles fill the card:
+// `clusters` clusters walk `chunks` chunks each, `resident` of them at a
+// time. A plan costs waves x chunks a cluster walks; d_ff is cut into at most
+// kMaxPrefillGroups groups where that saves a tenth of the cost (the groups'
+// f32 partials and their sum take a few per cent).
+int prefill_per_group(int clusters, int chunks, int resident) {
+  auto cost = [&](int per) {
+    return static_cast<long long>(
+               ceil_div(static_cast<long long>(clusters) * ceil_div(chunks, per),
+                        resident)) * per;
+  };
+  int best = chunks;
+  for (int g = 2; g <= kMaxPrefillGroups; ++g) {
+    const int per = ceil_div(chunks, g);
+    if (10 * cost(per) <= 9 * cost(chunks) && cost(per) < cost(best))
+      best = per;
+  }
+  return best;
+}
+
+// dtype 1 (bf16) or 0 (f32); resident: clusters of this launch resident at
+// once (bf16, at least 1; f32 does not read it). Returns 0, or
+// cudaErrorInvalidValue.
+int make_plan(int dtype, int t, int d, int f, int n_sm, int resident,
+              LaunchPlan* pl) {
   if (t <= 0 || d <= 0 || f <= 0 || d % 16 || f % 16 || n_sm <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long tiles_ll = (static_cast<long long>(t) + kBT - 1) / kBT;
   if (dtype == 1) {
     int c = 0, nw = 0;
     const int slices = pick_slices(d, &c, &nw);
-    if (nw == 0 || tiles_ll > 65535)
+    if (nw == 0 || tiles_ll > 65535 || resident < 1)
       return static_cast<int>(cudaErrorInvalidValue);
     const int tiles = static_cast<int>(tiles_ll);
     pl->block_t = kBT;
@@ -233,10 +272,12 @@ int make_plan(int dtype, int t, int d, int f, int n_sm, LaunchPlan* pl) {
     pl->cols = 2 * nw;
     pl->chunk = c * kPiece;
     pl->chunks = ceil_div(f, pl->chunk);
-    // groups that would fill the card
+    // groups that would fill the card (decode), else groups that fill the
+    // last wave of clusters (prefill)
     const int want = n_sm / (tiles * c * slices);
-    pl->per_group = want <= 1 ? pl->chunks
-                              : ceil_div(pl->chunks, std::min(want, pl->chunks));
+    pl->per_group =
+        want <= 1 ? prefill_per_group(tiles * slices, pl->chunks, resident)
+                  : ceil_div(pl->chunks, std::min(want, pl->chunks));
     pl->groups = ceil_div(pl->chunks, pl->per_group);
     const long long slot = slot_bytes(nw);
     const long long hbytes = static_cast<long long>(c) * kHPiece;
@@ -402,6 +443,59 @@ __device__ __forceinline__ void wgmma_mn<224>(float* d, uint64_t desc_a,
       "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
       "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
       "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_mn<256>(float* d, uint64_t desc_a,
+                                            uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+      "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+      "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+      "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+      "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+      "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+      "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+      "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+      "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+      "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+      "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+      "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+      "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+      "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+      "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+      "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+      "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
@@ -835,13 +929,14 @@ int launch_f32(const LaunchPlan& pl, const F32Params& p, void* y,
 }  // namespace
 
 // The launch for dtype (0 float32, 1 bfloat16), T, d_model, d_ff on a card
-// of n_sm SMs, as 13 numbers: block_t, cluster, cols, chunk, stages, groups,
-// per_group, chunks, smem, grid x, y, z, workspace bytes. Returns 0 or
-// cudaErrorInvalidValue (kernels/fused_ffn.py::plan computes the same).
+// of n_sm SMs where `resident` of its clusters fit at once, as 13 numbers:
+// block_t, cluster, cols, chunk, stages, groups, per_group, chunks, smem,
+// grid x, y, z, workspace bytes. Returns 0 or cudaErrorInvalidValue
+// (kernels/fused_ffn.py::plan computes the same).
 extern "C" int fused_ffn_plan(int dtype, int t, int d, int f, int n_sm,
-                              long long* out) {
+                              int resident, long long* out) {
   LaunchPlan pl;
-  const int r = make_plan(dtype, t, d, f, n_sm, &pl);
+  const int r = make_plan(dtype, t, d, f, n_sm, resident, &pl);
   if (r != 0) return r;
   const long long v[13] = {pl.block_t, pl.cluster, pl.cols, pl.chunk,
                            pl.stages, pl.groups, pl.per_group, pl.chunks,
@@ -853,13 +948,14 @@ extern "C" int fused_ffn_plan(int dtype, int t, int d, int f, int n_sm,
 
 // dtype: 0 = float32, 1 = bfloat16. wg null: ungated. act: 0 silu, 1 gelu
 // (tanh), 2 relu_sq, 3 relu. ws: the plan's workspace bytes (null when 0);
-// a smaller ws_bytes is refused. n_sm: the card's SM count.
+// a smaller ws_bytes is refused. n_sm: the card's SM count; resident: the
+// launch's clusters resident at once (fused_ffn_max_clusters; bf16).
 extern "C" int fused_ffn_launch(
     const void* x, const void* wg, const void* wu, const void* wd, void* ws,
     long long ws_bytes, void* y, int dtype, int t, int d, int f, int act,
-    int n_sm, void* stream) {
+    int n_sm, int resident, void* stream) {
   LaunchPlan pl;
-  const int r = make_plan(dtype, t, d, f, n_sm, &pl);
+  const int r = make_plan(dtype, t, d, f, n_sm, resident, &pl);
   if (r != 0) return r;
   if (act < 0 || act > 3 || !x || !wu || !wd || !y || ws_bytes < pl.ws_bytes ||
       (pl.ws_bytes > 0 && !ws))
@@ -876,7 +972,8 @@ extern "C" int fused_ffn_launch(
       case 32: return launch_bf16<32>(pl, p, x, wg, wu, wd, f, s);
       case 64: return launch_bf16<64>(pl, p, x, wg, wu, wd, f, s);
       case 128: return launch_bf16<128>(pl, p, x, wg, wu, wd, f, s);
-      default: return launch_bf16<224>(pl, p, x, wg, wu, wd, f, s);
+      case 224: return launch_bf16<224>(pl, p, x, wg, wu, wd, f, s);
+      default: return launch_bf16<kMaxWidth>(pl, p, x, wg, wu, wd, f, s);
     }
   }
   F32Params p;
@@ -892,10 +989,11 @@ extern "C" int fused_ffn_launch(
 
 // How many clusters of the bf16 launch for (t, d, f) can be resident at
 // once on the current device (cudaOccupancyMaxActiveClusters), or a
-// negative error code.
+// negative error code. It depends on d alone: the cluster and the shared
+// memory, which the plan for any residency (here 1) gives alike.
 extern "C" int fused_ffn_max_clusters(int t, int d, int f, int n_sm) {
   LaunchPlan pl;
-  const int r = make_plan(1, t, d, f, n_sm, &pl);
+  const int r = make_plan(1, t, d, f, n_sm, 1, &pl);
   if (r != 0) return -r;
   int n = -1;
   cudaError_t e = cudaSuccess;
@@ -903,7 +1001,8 @@ extern "C" int fused_ffn_max_clusters(int t, int d, int f, int n_sm) {
     case 32: e = max_clusters<32>(pl, &n); break;
     case 64: e = max_clusters<64>(pl, &n); break;
     case 128: e = max_clusters<128>(pl, &n); break;
-    default: e = max_clusters<224>(pl, &n); break;
+    case 224: e = max_clusters<224>(pl, &n); break;
+    default: e = max_clusters<kMaxWidth>(pl, &n); break;
   }
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }

@@ -10,11 +10,14 @@ blocks of a cluster split the (64-row, d_model) f32 accumulator by d_model
 columns, each computes its 64-column piece of every d_ff chunk of h with
 ``wgmma``, the pieces are all-gathered in distributed shared memory, and
 each block multiplies the whole chunk by its columns of Wd. A d_model wider
-than one cluster covers (``MAX_COVER``, 3584) is cut into slices, one
-cluster each, that recompute the expansion (``Plan.slices``). At prefill it
-writes nothing but y; at decode the plan splits d_ff into groups whose f32
-partials a second pass sums in a fixed order. The f32 kernel (tests and the
-f32 checks) is scalar and splits d_ff over blocks with f32 partials.
+than one cluster covers (``MAX_COVER``, 4096) is cut into slices, one
+cluster each, that recompute the expansion (``Plan.slices``). The plan
+splits d_ff into groups whose f32 partials a second pass sums in a fixed
+order: at decode to spread the weights over the card, at prefill where the
+token tiles' clusters would leave their last wave part empty (``resident``
+clusters at once); else the kernel writes nothing but y. The f32 kernel
+(tests and the f32 checks) is scalar and splits d_ff over blocks with f32
+partials.
 ``plan`` states in Python what one launch is handed, as the launcher
 computes it (``fused_ffn_plan`` in the source), so the CPU tests can check
 it.
@@ -57,9 +60,9 @@ from repro_torch.runtime import trace
 LAUNCHES = 0
 
 _vp, _int, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# x, wg, wu, wd, ws, ws_bytes, y, 6 ints, the stream: the order of
+# x, wg, wu, wd, ws, ws_bytes, y, 7 ints, the stream: the order of
 # fused_ffn_launch's parameters in csrc/fused_ffn.cu.
-_ARGTYPES = [_vp] * 5 + [_ll, _vp] + [_int] * 6 + [_vp]
+_ARGTYPES = [_vp] * 5 + [_ll, _vp] + [_int] * 7 + [_vp]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ACT_CODES = {"silu": 0, "gelu": 1, "relu_sq": 2, "relu": 3}
 
@@ -67,9 +70,12 @@ ACT_CODES = {"silu": 0, "gelu": 1, "relu_sq": 2, "relu": 3}
 # shared-memory limit per block.
 BLOCK_T = 64             # token rows per block (wgmma M)
 PIECE = 64               # d_ff columns of h per block per chunk
-WIDTHS = (32, 64, 128, 224)   # output columns per consumer warpgroup
+# output columns per consumer warpgroup; the last, 256, only at a full
+# cluster, past what 224 covers there
+WIDTHS = (32, 64, 128, 224, 256)
 MAX_CLUSTER = 8          # the portable cluster size
 MAX_COVER = MAX_CLUSTER * 2 * WIDTHS[-1]   # d_model columns one cluster covers
+MAX_PREFILL_GROUPS = 4   # d_ff groups at prefill: partials grow with T
 EXP_K = 128              # d_model columns per expansion ring stage
 PROJ_K = 32              # d_ff rows per projection ring stage
 MAX_STAGES = 6
@@ -138,11 +144,13 @@ def _cdiv(a: int, b: int) -> int:
 
 def pick_width(d: int) -> Tuple[int, int]:
     """(cluster, columns per warpgroup) for ``d`` columns in bf16: the
-    smallest cluster whose blocks cover d with one of ``WIDTHS``."""
+    smallest cluster whose blocks cover d with one of ``WIDTHS`` but the
+    last, else a full cluster at the last (a smaller cluster at 256 would
+    put a token tile on half the SMs)."""
     c = 1
     while c <= MAX_CLUSTER:
         need = _cdiv(d, 2 * c)
-        for nw in WIDTHS:
+        for nw in WIDTHS if c == MAX_CLUSTER else WIDTHS[:-1]:
             if need <= nw:
                 return c, nw
         c *= 2
@@ -157,17 +165,40 @@ def pick_slices(d: int) -> Tuple[int, int, int]:
     return (slices, *pick_width(_cdiv(d, slices)))
 
 
-def plan(t: int, d: int, d_ff: int, dtype: torch.dtype, n_sm: int) -> Plan:
+def prefill_per_group(clusters: int, chunks: int, resident: int) -> int:
+    """Chunks per d_ff group where the token tiles' ``clusters`` fill the
+    card, ``resident`` of them at a time: a plan costs waves x the chunks a
+    cluster walks, and d_ff is cut into at most ``MAX_PREFILL_GROUPS``
+    groups where that saves a tenth of the cost (the groups' f32 partials
+    and their sum take a few per cent)."""
+    def cost(per):
+        return _cdiv(clusters * _cdiv(chunks, per), resident) * per
+    best = chunks
+    for g in range(2, MAX_PREFILL_GROUPS + 1):
+        per = _cdiv(chunks, g)
+        if 10 * cost(per) <= 9 * cost(chunks) and cost(per) < cost(best):
+            best = per
+    return best
+
+
+def plan(t: int, d: int, d_ff: int, dtype: torch.dtype, n_sm: int,
+         resident: int) -> Plan:
     """The launch for x (t, d), Wg/Wu (d, d_ff), Wd (d_ff, d) on a card of
-    ``n_sm`` SMs."""
+    ``n_sm`` SMs where ``resident`` clusters of it fit at once (bf16, at
+    least 1: ``max_active_clusters``; the f32 plan does not read it)."""
     if dtype == torch.bfloat16:
+        if resident < 1:
+            raise ValueError(f"need at least 1 resident cluster, got "
+                             f"{resident}")
         tiles = _cdiv(t, BLOCK_T)
         slices, c, nw = pick_slices(d)
         chunk = c * PIECE
         chunks = _cdiv(d_ff, chunk)
-        # d_ff groups that would fill the card
+        # d_ff groups that would fill the card (decode), else groups that
+        # fill the last wave of clusters (prefill)
         want = n_sm // (tiles * c * slices)
-        per = chunks if want <= 1 else _cdiv(chunks, min(want, chunks))
+        per = (prefill_per_group(tiles * slices, chunks, resident)
+               if want <= 1 else _cdiv(chunks, min(want, chunks)))
         groups = _cdiv(chunks, per)
         slot = max(EXP_K // 64 * X_BOX + 4 * W_BOX, PROJ_K * 2 * nw * 2)
         h_bytes = c * H_PIECE
@@ -200,18 +231,19 @@ def _lib() -> ctypes.CDLL:
         lib.fused_ffn_launch.restype = _int
         lib.fused_ffn_error_string.argtypes = [_int]
         lib.fused_ffn_error_string.restype = ctypes.c_char_p
-        lib.fused_ffn_plan.argtypes = [_int] * 5 + [ctypes.POINTER(_ll)]
+        lib.fused_ffn_plan.argtypes = [_int] * 6 + [ctypes.POINTER(_ll)]
         lib.fused_ffn_plan.restype = _int
         lib.fused_ffn_max_clusters.argtypes = [_int] * 4
         lib.fused_ffn_max_clusters.restype = _int
     return lib
 
 
-def kernel_plan(t: int, d: int, d_ff: int, dtype: torch.dtype,
-                n_sm: int) -> Tuple[int, ...]:
+def kernel_plan(t: int, d: int, d_ff: int, dtype: torch.dtype, n_sm: int,
+                resident: int) -> Tuple[int, ...]:
     """The 13 numbers the built launcher computes for this launch."""
     out = (_ll * 13)()
-    err = _lib().fused_ffn_plan(_DTYPES[dtype], t, d, d_ff, n_sm, out)
+    err = _lib().fused_ffn_plan(_DTYPES[dtype], t, d, d_ff, n_sm, resident,
+                                out)
     if err != 0:
         raise ValueError(f"fused_ffn_plan refused T {t}, d {d}, d_ff {d_ff}")
     return tuple(out)
@@ -226,9 +258,24 @@ def max_active_clusters(t: int, d: int, d_ff: int, n_sm: int) -> int:
     return n
 
 
-# The SMs of an H100 SXM: what the fake impl plans for, where no card is
-# there to ask.
+_RESIDENT = {}   # (device index, d_model) -> resident clusters
+
+
+def resident_clusters(dev: torch.device, t: int, d: int, d_ff: int,
+                      n_sm: int) -> int:
+    """``max_active_clusters`` on ``dev``, asked once per card and d_model
+    (the cluster and shared memory depend on d_model alone)."""
+    key = (dev.index, d)
+    if key not in _RESIDENT:
+        with torch.cuda.device(dev):
+            _RESIDENT[key] = max_active_clusters(t, d, d_ff, n_sm)
+    return _RESIDENT[key]
+
+
+# The SMs of an H100 SXM and the clusters of 8 resident on it at once: what
+# the fake impl plans for, where no card is there to ask.
 H100_SMS = 132
+H100_RESIDENT = 15
 
 
 def _check_launch(x, w_gate, w_up, w_down, act) -> Tuple[int, int, int]:
@@ -265,6 +312,25 @@ def _check_plan(pl: Plan, dtype: torch.dtype) -> None:
         raise ValueError(f"fused FFN plan refused: {pl}")
 
 
+def launch_plan(t: int, d: int, f: int, dtype: torch.dtype,
+                dev: torch.device) -> Tuple[int, int, Plan]:
+    """(the card's SMs, its resident clusters, the plan) of a launch on
+    ``dev``, checked, under the span ``ffn.plan``, whose args are the plan's
+    slices, d_ff groups, cluster, grid, columns per block and the resident
+    clusters it planned for."""
+    with trace.span("ffn.plan") as rec:
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        resident = (resident_clusters(dev, t, d, f, n_sm)
+                    if dtype == torch.bfloat16 else 0)
+        pl = plan(t, d, f, dtype, n_sm, resident)
+        _check_plan(pl, dtype)
+        if rec is not None:
+            rec.args.update(slices=pl.slices, groups=pl.groups,
+                            cluster=pl.cluster, grid=pl.grid, cols=pl.cols,
+                            resident=resident)
+    return n_sm, resident, pl
+
+
 def fused_ffn_cuda(x: torch.Tensor, w_gate: Optional[torch.Tensor],
                    w_up: torch.Tensor, w_down: torch.Tensor, *,
                    act: str = "silu") -> torch.Tensor:
@@ -277,8 +343,7 @@ def fused_ffn_cuda(x: torch.Tensor, w_gate: Optional[torch.Tensor],
         d_ff multiples of 16.
       act: silu | gelu (tanh) | relu_sq | relu.
     Returns: (T, d_model) in x's dtype, on x's device and current stream.
-    The card's SMs and the plan are the span ``ffn.plan``, with the plan's
-    slices, d_ff groups, cluster and grid as args.
+    The card's SMs and the plan are the span ``ffn.plan`` (``launch_plan``).
     """
     global LAUNCHES
     t, d, f = _check_launch(x, w_gate, w_up, w_down, act)
@@ -289,13 +354,7 @@ def fused_ffn_cuda(x: torch.Tensor, w_gate: Optional[torch.Tensor],
                          "(TMA)")
     if dev.type != "cuda":
         raise ValueError(f"fused_ffn_cuda needs CUDA tensors, got {dev}")
-    with trace.span("ffn.plan") as rec:
-        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        pl = plan(t, d, f, x.dtype, n_sm)
-        _check_plan(pl, x.dtype)
-        if rec is not None:
-            rec.args.update(slices=pl.slices, groups=pl.groups,
-                            cluster=pl.cluster, grid=pl.grid)
+    n_sm, resident, pl = launch_plan(t, d, f, x.dtype, dev)
     ws = torch.empty(pl.ws_bytes // 4, dtype=torch.float32, device=dev)
     out = torch.empty_like(x)
     lib = _lib()
@@ -306,7 +365,7 @@ def fused_ffn_cuda(x: torch.Tensor, w_gate: Optional[torch.Tensor],
             w_up.data_ptr(), w_down.data_ptr(),
             ws.data_ptr() if pl.ws_bytes else None, pl.ws_bytes,
             out.data_ptr(), _DTYPES[x.dtype], t, d, f, ACT_CODES[act], n_sm,
-            stream)
+            resident, stream)
     if err != 0:
         msg = lib.fused_ffn_error_string(err).decode()
         raise RuntimeError(f"fused_ffn kernel launch failed: {msg} ({err})")
@@ -341,7 +400,7 @@ OPS.impl("fused_ffn", _fused_ffn_cpu_impl, "CPU")
 @torch.library.register_fake("repro_torch::fused_ffn")
 def _fused_ffn_fake(x, w_gate, w_up, w_down, act):
     t, d, f = _check_launch(x, w_gate, w_up, w_down, act)
-    _check_plan(plan(t, d, f, x.dtype, H100_SMS), x.dtype)
+    _check_plan(plan(t, d, f, x.dtype, H100_SMS, H100_RESIDENT), x.dtype)
     return torch.empty_like(x)
 
 

@@ -307,6 +307,51 @@ def test_wide_ffn_and_new_flash_shapes_cuda_match_plain():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("t", [1500, 16])
+def test_glm4_ffn_at_full_width_one_slice_on_the_card(t):
+    """glm4-9b's FFN (d_model 4096, d_ff 13696) at its prefill cell's T 1500
+    and its decode cell's T 16: one cluster of 8 covers d_model (one slice,
+    256 columns a warpgroup), the plan's span says so with the card's
+    resident clusters, no synchronise inside the launch, and y equals the
+    plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the fused-FFN kernel has no CPU mode")
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import fused_ffn
+    from repro_torch.runtime import trace
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    d, f = 4096, 13696
+    x = torch.randn((t, d), generator=gen, device="cuda").bfloat16()
+    wg, wu = ((torch.randn((d, f), generator=gen, device="cuda")
+               * d ** -0.5).bfloat16() for _ in range(2))
+    wd = (torch.randn((f, d), generator=gen, device="cuda")
+          * f ** -0.5).bfloat16()
+    ops.ffn(x, wg, wu, wd, act="silu")    # build, opt-in, cluster check
+    torch.cuda.synchronize()
+    before = fused_ffn.LAUNCHES
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = ops.ffn(x, wg, wu, wd, act="silu")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert fused_ffn.LAUNCHES == before + 1
+    (rec,) = trace.records("ffn.plan")
+    trace.clear()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    resident = fused_ffn.max_active_clusters(t, d, f, n_sm)
+    pl = fused_ffn.plan(t, d, f, torch.bfloat16, n_sm, resident)
+    assert (rec.args["slices"], rec.args["cluster"], rec.args["cols"],
+            rec.args["resident"]) == (1, 8, 512, resident)
+    assert (rec.args["groups"], rec.args["grid"]) == (pl.groups, pl.grid)
+    assert fused_ffn.kernel_plan(t, d, f, torch.bfloat16, n_sm,
+                                 resident) == pl.as_tuple()
+    _close(got, ref.fused_ffn_ref(x, wg, wu, wd, act="silu"), 2e-2)
+
+
+@pytest.mark.gpu
 def test_cfu_fast_path_cuda_matches_cpu():
     """The CFU fast path on the card (fused and row-tile stages through the
     DSC kernel, 7 launches per call) equals the CPU fast path (the kernel's

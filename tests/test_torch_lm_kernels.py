@@ -259,7 +259,8 @@ def test_ffn_plan_covers_d_ff_and_keeps_h_in_shared_memory():
                      (2048, torch.bfloat16), (1000, torch.bfloat16),
                      (64, torch.float32), (17, torch.float32)]:
         for d_ff in (14336, 512, 192, 16):
-            pl = tff.plan(t, 3584, d_ff, dtype, n_sm=132)
+            pl = tff.plan(t, 3584, d_ff, dtype, n_sm=132,
+                          resident=tff.H100_RESIDENT)
             # bf16: groups of whole chunks; f32: splits of 128-column chunks
             step = pl.chunk if dtype == torch.bfloat16 else tff.F32_COLS
             assert pl.chunks * step >= d_ff > (pl.chunks - 1) * step
@@ -274,10 +275,13 @@ def test_ffn_plan_covers_d_ff_and_keeps_h_in_shared_memory():
             else:
                 assert pl.block_t * pl.chunk * 4 <= tff.F32_H_BYTES
                 assert pl.grid[0] * pl.block_t >= t
-    # the gemma2-9b path shapes: prefill (no workspace) and decode
-    assert tff.plan(2048, 3584, 14336, torch.bfloat16, 132) == tff.Plan(
-        64, 8, 448, 512, 3, 1, 28, 28, 214_128, (8, 32, 1), 0)
-    assert tff.plan(4, 3584, 14336, torch.bfloat16, 132) == tff.Plan(
+    # the gemma2-9b path shapes on an H100: prefill (4 d_ff groups fill the
+    # last wave of 15 resident clusters) and decode
+    assert tff.plan(2048, 3584, 14336, torch.bfloat16, 132,
+                    tff.H100_RESIDENT) == tff.Plan(
+        64, 8, 448, 512, 3, 4, 7, 28, 214_128, (8, 32, 4), 117_440_512)
+    assert tff.plan(4, 3584, 14336, torch.bfloat16, 132,
+                    tff.H100_RESIDENT) == tff.Plan(
         64, 8, 448, 512, 3, 14, 2, 28, 214_128, (8, 1, 14), 802_816)
 
 
