@@ -9,9 +9,8 @@
 count of IMMA instructions in its SASS, and holds the kernel to
 ``ref.fused_dsc_ref`` (``torch.equal``, card and CPU) on the seven blocks of
 the 80x80 MobileNetV2-VWW network at batch 1, 64 and 256 (the plan's
-tiles, with the built launcher's plan held to ``fused_dsc.plan``), and on
-chip_smoke.py's ragged shapes and non-zero ``b_exp`` block with their tile
-rows and the plan's.
+tiles), and on chip_smoke.py's ragged shapes and non-zero ``b_exp`` block
+with their tile rows and the plan's.
 
 ``time`` prints each block's CUDA-graph time at batch 256 and 1. With
 ``--parent DIR`` (a checkout of another tree) it also times that tree's
@@ -86,9 +85,6 @@ def check(dev):
             b, h, w, _ = x.shape
             pl = fused_dsc.plan(b, h, w, sp.cin, sp.cmid, sp.cout, sp.stride,
                                 None, n_sm)
-            assert fused_dsc.kernel_plan(b, h, w, sp.cin, sp.cmid, sp.cout,
-                                         sp.stride, None, n_sm) \
-                == pl.as_tuple(), (name, batch)
             occ = fused_dsc.occupancy(sp.stride, sp.cin, pl.smem_bytes)
             run(f"{name}@B{batch}", x, qp, dev, None)
             print(f"[check] {name} B{batch}: tile_rows {pl.tile_rows}, units "

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""One traced benchmark run, then the fused-FFN plans its launches ran.
+"""One traced benchmark run, then the kernel plans its launches ran.
 
     python3 probes/ffn_plan_records.py --workload W --seed N [--seconds S]
 
 Runs ``bench/run.py --trace 1`` in this process (its result line is printed
-as it prints it), then reads the port's ``ffn.plan`` records, which the
-profiled passes kept (``runtime.trace.records``), and prints one line per
-distinct plan: how many launches ran it, and its args (d_model slices, d_ff
-groups, cluster, grid, columns per block, the resident clusters planned
-for).
+as it prints it), then reads the port's ``dsc.plan``, ``ffn.plan`` and
+``flash.plan`` records, which the profiled passes kept
+(``runtime.trace.records``), and prints one line per distinct plan: how
+many launches ran it, and its args (DSC: tile rows, grid, units, shared
+memory; FFN: d_model slices, d_ff groups, cluster, grid, columns per block,
+the resident clusters planned for; flash: the bf16 grid).
 """
 
 from __future__ import annotations
@@ -33,10 +34,11 @@ def main(argv=None) -> int:
     rc = run["main"](["--workload", args.workload, "--seed", str(args.seed),
                       "--seconds", str(args.seconds), "--trace", "1"])
     from repro_torch.runtime import trace
-    plans = collections.Counter(
-        json.dumps(r.args, sort_keys=True) for r in trace.records("ffn.plan"))
-    for plan, n in plans.most_common():
-        print(f"# ffn.plan x {n}: {plan}", flush=True)
+    for span in ("dsc.plan", "ffn.plan", "flash.plan"):
+        plans = collections.Counter(
+            json.dumps(r.args, sort_keys=True) for r in trace.records(span))
+        for plan, n in plans.most_common():
+            print(f"# {span} x {n}: {plan}", flush=True)
     return rc
 
 

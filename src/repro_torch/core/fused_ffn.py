@@ -29,7 +29,7 @@ import torch.utils.checkpoint
 from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.fused_dsc import on_card
+from repro_torch.kernels.build import on_card
 from repro_torch.kernels.ref import ACTS
 from repro_torch.runtime.actctx import local_call, partial_on, placed, sharded_on
 

@@ -6,6 +6,9 @@ rebuilds, and is loaded with ``ctypes``. The sources have a plain C
 interface and include no PyTorch header, so a build takes seconds.
 ``build_all`` starts one ``nvcc`` per source, all at once.
 
+Every launcher also takes from here what it asks of a tensor before it
+passes a pointer (``on_card``, ``check_tensor``).
+
 Nothing is built or loaded when this module is imported.
 """
 
@@ -20,6 +23,9 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, List, Optional
+
+import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -132,3 +138,25 @@ def build_all() -> Dict[str, Built]:
                     proc.kill()
                     proc.wait()
     return {n: _LOADED[n] for n in names}
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes a kernel's route: a CUDA tensor, or a fake one
+    (``FakeTensorMode``), the dry run's shape-only stand-in for a CUDA
+    tensor on any build of torch."""
+    return t.device.type == "cuda" or isinstance(t, FakeTensor)
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
+                 device: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: what every launcher checks before it passes a pointer."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -63,9 +63,10 @@
 // with the other's products, a persistent grid, and fp8.
 //
 // Interface: plain C, loaded with ctypes. The launcher takes device
-// pointers, sizes and a stream; launches on that stream, does not
-// synchronise, allocates nothing and returns cudaGetLastError() (or
-// kEncodeFailed when a tensor map cannot be encoded).
+// pointers, sizes, the plan's shared memory and a stream; launches on that
+// stream, does not synchronise, allocates nothing and returns
+// cudaGetLastError() (or kEncodeFailed when a tensor map cannot be encoded,
+// kBadPlan when the shared memory is not the kernel's own).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -82,6 +83,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
+constexpr int kBadPlan = -2;   // a handed plan the kernel cannot run
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e30f;
@@ -289,8 +291,9 @@ constexpr uint32_t kChunk = kBox * 64 * 2;   // one 64-row box: 8 KB
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Bytes of one 64-row tile of d_pad columns, and of the block's shared
-// memory: 1 KB of alignment slack, Q, kStages x (K, V), the barriers.
-// kernels/flash_attention.py::plan mirrors this.
+// memory: 1 KB of alignment slack, Q, kStages x (K, V), the barriers. The
+// launch takes kernels/flash_attention.py::plan's smem_bytes and refuses a
+// value other than this.
 __host__ __device__ constexpr uint32_t tile_bytes(int dp) {
   return static_cast<uint32_t>(dp / kBox) * kChunk;
 }
@@ -712,10 +715,12 @@ int encode_bthd(EncodeTiled fn, CUtensorMap* map, const void* ptr, int d,
 }
 
 template <int DP>
-int launch_bf16(const Params& p, int batch, cudaStream_t stream) {
+int launch_bf16(const Params& p, int batch, int plan_smem,
+                cudaStream_t stream) {
   static_assert(kBQ == kBK, "one box height serves Q, K and V");
   static int opted_in[64] = {0};
   const size_t smem = bf16_smem_bytes(DP);
+  if (static_cast<size_t>(plan_smem) != smem) return kBadPlan;
   const long long q_tiles = (p.tq + kBQ - 1) / kBQ;
   const long long bh = static_cast<long long>(batch) * p.heads;
   if (q_tiles > INT_MAX || bh > 65535)
@@ -739,10 +744,13 @@ int launch_bf16(const Params& p, int batch, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. window <= 0: none. has_softcap 0/1.
+// smem: bf16, the plan's shared memory (kernels/flash_attention.py::plan),
+// refused unless it is the kernel's own; f32 plans nothing and passes 0.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, int dtype,
     int batch, int heads, int kv_heads, int tq, int tk, int d, int causal,
-    int window, int has_softcap, float softcap, float sm_scale, void* stream) {
+    int window, int has_softcap, float softcap, float sm_scale, int smem,
+    void* stream) {
   if (batch <= 0 || heads <= 0 || kv_heads <= 0 || heads % kv_heads != 0 ||
       tq <= 0 || tk <= 0 || d <= 0 || d % 16 != 0 || d > 256 ||
       (has_softcap && !(softcap > 0.f)))
@@ -755,24 +763,22 @@ extern "C" int flash_attention_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     switch ((d + kBox - 1) / kBox) {
-      case 1: return launch_bf16<64>(p, batch, s);
-      case 2: return launch_bf16<128>(p, batch, s);
-      case 3: return launch_bf16<192>(p, batch, s);
-      default: return launch_bf16<256>(p, batch, s);
+      case 1: return launch_bf16<64>(p, batch, smem, s);
+      case 2: return launch_bf16<128>(p, batch, smem, s);
+      case 3: return launch_bf16<192>(p, batch, smem, s);
+      default: return launch_bf16<256>(p, batch, smem, s);
     }
   }
-  if (dtype == 0) return launch_f32<32, 32>(p, batch, s);
+  if (dtype == 0)
+    return smem != 0 ? kBadPlan : launch_f32<32, 32>(p, batch, s);
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// Shared memory of one bf16 block at head dim d, as the launcher asks for
-// it (kernels/flash_attention.py::plan computes the same number).
-extern "C" int flash_attention_bf16_smem_bytes(int d) {
-  return static_cast<int>(bf16_smem_bytes((d + kBox - 1) / kBox * kBox));
 }
 
 extern "C" const char* flash_attention_error_string(int code) {
   static char buf[96];
+  if (code == kBadPlan)
+    return "the plan's shared memory is not the kernel's own (bf16), or not "
+           "0 (f32)";
   if (code == kEncodeFailed) {
     snprintf(buf, sizeof(buf), "cuTensorMapEncodeTiled failed (CUresult %d)",
              g_last_encode_result);

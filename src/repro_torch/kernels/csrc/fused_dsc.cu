@@ -56,13 +56,15 @@
 //
 // Interface: plain C, loaded with ctypes. The launcher takes device
 // pointers, ints and a stream; launches on that stream, does not
-// synchronise, allocates nothing and returns cudaGetLastError().
-// fused_dsc_plan reports what a launch is handed (kernels/fused_dsc.py::plan
-// mirrors it).
+// synchronise, allocates nothing and returns cudaGetLastError(). It takes
+// the launch plan of kernels/fused_dsc.py::plan (tile height, units, grid,
+// shared-memory layout) as its numbers and decides nothing itself: it
+// refuses a plan whose layout differs from the kernel's own map at that tile
+// height, whose tiles or units do not cover the batch, or whose grid is
+// empty or larger than its units.
 
 #include <cuda_runtime.h>
 
-#include <climits>
 #include <cstdint>
 
 #include "hopper.cuh"
@@ -77,18 +79,16 @@ constexpr int kTaps = 9;
 constexpr int kMmaK = 16;            // m16n8k16: K bytes per product
 constexpr int kMaxKSteps = 4;        // expansion K (C padded) up to 64
 constexpr int kMaxMid = 4 * kThreads;   // one 4-channel group per thread
-constexpr long long kSmemPerSm = 233472;   // 228 KB per SM
-constexpr long long kSmemReserved = 1024;  // the runtime's share per block
 constexpr long long kSmemLimit = 232448;   // 227 KB per block (opt-in)
 
 constexpr int kBadArgs = -2;   // widths or stride the kernel does not take
-constexpr int kTooBig = -3;    // no tile of the map fits in shared memory
+constexpr int kBadPlan = -3;   // a handed plan the kernel cannot run
+const char* g_refusal = "";    // which check refused the plan
 
-// ---- the plan: tiles, units, grid and the shared-memory layout ------------
+// ---- the shared-memory layout, and the check of a handed plan --------------
 
-struct Plan {
-  long long tile_rows, n_tiles, units, blocks_per_sm, grid, smem;
-  long long kx, kp, kxs, kps, wf1, runs;
+struct Layout {
+  long long smem, kx, kp, kxs, kps, wf1, runs;
   // byte offsets of the shared-memory regions
   long long off_wproj, off_params, off_x, x_bytes, off_f1, off_f2;
 };
@@ -101,72 +101,70 @@ long long round16(long long v) { return (v + 15) / 16 * 16; }
 long long pad_stride(long long k) { return k % 32 == 0 ? k + 16 : k; }
 
 // The layout of one block for tiles of t output rows.
-void layout(int h, int w, int cin, int cmid, int cout, int s, int t,
-            Plan* pl) {
-  (void)h;
+void layout(int w, int cin, int cmid, int cout, int s, int t, Layout* ly) {
   const long long w2 = (w + s - 1) / s;
-  pl->tile_rows = t;
-  pl->kx = round16(cin);
-  pl->kp = round16(cmid);
-  pl->kxs = pad_stride(pl->kx);
-  pl->kps = pad_stride(pl->kp);
-  pl->runs = (w2 + kRun - 1) / kRun;
-  const long long reach = static_cast<long long>(s) * (pl->runs * kRun - 1) + 3;
-  pl->wf1 = reach > w + 2 ? reach : w + 2;
+  ly->kx = round16(cin);
+  ly->kp = round16(cmid);
+  ly->kxs = pad_stride(ly->kx);
+  ly->kps = pad_stride(ly->kp);
+  ly->runs = (w2 + kRun - 1) / kRun;
+  const long long reach = static_cast<long long>(s) * (ly->runs * kRun - 1)
+                        + 3;
+  ly->wf1 = reach > w + 2 ? reach : w + 2;
   const long long strip = static_cast<long long>(t - 1) * s + 3;
   const long long x_rows = round16(strip * w);
   const long long f2_rows = round16(static_cast<long long>(t) * w2);
-  long long off = round16(static_cast<long long>(cmid) * pl->kxs);  // w_exp^T
-  pl->off_wproj = off;
-  off += round16(static_cast<long long>(cout) * pl->kps);           // w_proj^T
-  pl->off_params = off;
+  long long off = round16(static_cast<long long>(cmid) * ly->kxs);  // w_exp^T
+  ly->off_wproj = off;
+  off += round16(static_cast<long long>(cout) * ly->kps);           // w_proj^T
+  ly->off_params = off;
   off += round16(4LL * (2 * cmid + 2 * cout));   // b_exp, m_exp, b_proj, m_proj
-  pl->off_x = off;
-  pl->x_bytes = round16(x_rows * pl->kxs);
-  off += 2 * pl->x_bytes;                        // two strip buffers
-  pl->off_f1 = off;
-  off += round16((strip * pl->wf1 + 1) * cmid);  // F1 strip, a trash pixel
-  pl->off_f2 = off;
-  off += round16(f2_rows * pl->kps);             // F2 tile
-  pl->smem = off;
+  ly->off_x = off;
+  ly->x_bytes = round16(x_rows * ly->kxs);
+  off += 2 * ly->x_bytes;                        // two strip buffers
+  ly->off_f1 = off;
+  off += round16((strip * ly->wf1 + 1) * cmid);  // F1 strip, a trash pixel
+  ly->off_f2 = off;
+  off += round16(f2_rows * ly->kps);             // F2 tile
+  ly->smem = off;
 }
 
-// Fills `pl` for tiles of `tile_rows` output rows, or, with tile_rows 0,
-// for the tile height that the cost below picks: the fewest rows of work
-// (strip rows of the expansion at W pixels, plus twice the output rows at
-// W2 pixels) per block, times the units each resident block walks; ties go
-// to the taller tile, which recomputes less halo.
-int make_plan(int batch, int h, int w, int cin, int cmid, int cout, int s,
-              int tile_rows, int n_sm, Plan* pl) {
+int refuse(const char* why) {
+  g_refusal = why;
+  return kBadPlan;
+}
+
+// 0 if the kernel runs the handed plan (tile_rows, n_tiles, units,
+// blocks_per_sm, grid, smem, kx, kp, kxs, kps, wf1, runs) of a batch of
+// (h, w, cin) maps, filling `ly` with its layout; else kBadArgs or
+// kBadPlan, with g_refusal naming the check. blocks_per_sm is what the
+// grid assumes of the card (fused_dsc_occupancy asks it); no launch reads
+// it.
+int check_plan(int batch, int h, int w, int cin, int cmid, int cout, int s,
+               const int* plan, Layout* ly) {
   if (batch <= 0 || h <= 0 || w <= 0 || cin <= 0 || cmid <= 0 || cout <= 0 ||
-      (s != 1 && s != 2) || tile_rows < 0 || n_sm <= 0 || cin % 8 ||
-      cmid % 8 || cout % 8 || cin > kMmaK * kMaxKSteps || cmid > kMaxMid)
+      (s != 1 && s != 2) || cin % 8 || cmid % 8 || cout % 8 ||
+      cin > kMmaK * kMaxKSteps || cmid > kMaxMid)
     return kBadArgs;
-  const int h2 = (h + s - 1) / s;
-  const int w2 = (w + s - 1) / s;
-  int lo = 1, hi = h2;
-  if (tile_rows > 0) lo = hi = tile_rows < h2 ? tile_rows : h2;
-  long long best = -1;
-  for (int t = lo; t <= hi; ++t) {
-    Plan c;
-    layout(h, w, cin, cmid, cout, s, t, &c);
-    if (c.smem > kSmemLimit) break;   // taller tiles only need more
-    long long bps = kSmemPerSm / (c.smem + kSmemReserved);
-    if (bps > kMaxBlocksPerSm) bps = kMaxBlocksPerSm;
-    c.n_tiles = (h2 + t - 1) / t;
-    c.units = static_cast<long long>(batch) * c.n_tiles;
-    c.blocks_per_sm = bps;
-    c.grid = c.units < n_sm * bps ? c.units : n_sm * bps;
-    const long long waves = (c.units + c.grid - 1) / c.grid;
-    const long long cost = waves * ((static_cast<long long>(t - 1) * s + 3) * w
-                                    + 2LL * t * w2);
-    if (best < 0 || cost <= best) {
-      best = cost;
-      *pl = c;
-    }
-  }
-  if (best < 0) return kTooBig;
-  if (pl->grid > INT_MAX || pl->units > INT_MAX) return kBadArgs;
+  const int t = plan[0], n_tiles = plan[1], units = plan[2], grid = plan[4];
+  const long long h2 = (h + s - 1) / s;
+  if (t < 1 || t > h2)
+    return refuse("tile_rows outside [1, ceil(H / stride)]");
+  layout(w, cin, cmid, cout, s, t, ly);
+  const long long own[7] = {ly->smem, ly->kx, ly->kp, ly->kxs, ly->kps,
+                            ly->wf1, ly->runs};
+  for (int i = 0; i < 7; ++i)
+    if (plan[5 + i] != own[i])
+      return refuse("smem, kx, kp, kxs, kps, wf1 or runs differ from the "
+                    "kernel's layout at tile_rows");
+  if (ly->smem > kSmemLimit)
+    return refuse("smem above the 232448 bytes a block may opt in to");
+  if (n_tiles != (h2 + t - 1) / t)
+    return refuse("n_tiles != ceil(H2 / tile_rows): the tiles do not cover "
+                  "the output rows");
+  if (units != static_cast<long long>(batch) * n_tiles)
+    return refuse("units != batch * n_tiles");
+  if (grid < 1 || grid > units) return refuse("grid outside [1, units]");
   return 0;
 }
 
@@ -606,24 +604,6 @@ int kernel_index(int stride, int cin) {
 
 }  // namespace
 
-// The plan of a launch: tile_rows (0: the plan picks), the card's SM count.
-// out: tile rows, tiles per image, units, blocks per SM, grid, shared-memory
-// bytes, padded C, padded M, the two K-major row strides, F1 columns, runs
-// per output row. Returns 0, kBadArgs or kTooBig.
-extern "C" int fused_dsc_plan(int batch, int h, int w, int cin, int cmid,
-                              int cout, int stride, int tile_rows, int n_sm,
-                              long long* out) {
-  Plan pl;
-  const int r = make_plan(batch, h, w, cin, cmid, cout, stride, tile_rows,
-                          n_sm, &pl);
-  if (r != 0) return r;
-  const long long v[12] = {pl.tile_rows, pl.n_tiles, pl.units,
-                           pl.blocks_per_sm, pl.grid, pl.smem, pl.kx, pl.kp,
-                           pl.kxs, pl.kps, pl.wf1, pl.runs};
-  for (int i = 0; i < 12; ++i) out[i] = v[i];
-  return 0;
-}
-
 // Blocks of the kernel for `stride` and `cin` that fit on one SM of the
 // current card with `smem` bytes of dynamic shared memory each, or
 // -cudaError.
@@ -644,13 +624,14 @@ extern "C" int fused_dsc_launch(
     const void* b_exp, const void* b_dw, const void* b_proj,
     const void* m_exp, const void* m_dw, const void* m_proj, void* out,
     int batch, int h, int w, int cin, int cmid, int cout, int stride,
-    int tile_rows, int n_sm, int zp_f1, int zp_f2, int zp_out, int q6_f1,
-    int q6_f2, void* stream) {
-  Plan pl;
-  const int r = make_plan(batch, h, w, cin, cmid, cout, stride, tile_rows,
-                          n_sm, &pl);
+    int tile_rows, int n_tiles, int units, int blocks_per_sm, int grid,
+    int smem, int kx, int kp, int kxs, int kps, int wf1, int runs, int zp_f1,
+    int zp_f2, int zp_out, int q6_f1, int q6_f2, void* stream) {
+  const int plan[12] = {tile_rows, n_tiles, units, blocks_per_sm, grid, smem,
+                        kx, kp, kxs, kps, wf1, runs};
+  Layout ly;
+  const int r = check_plan(batch, h, w, cin, cmid, cout, stride, plan, &ly);
   if (r != 0) return r;
-  if (pl.smem > INT_MAX) return kTooBig;
   Params p;
   p.x = static_cast<const int8_t*>(x);
   p.w_exp = static_cast<const int8_t*>(w_exp);
@@ -666,42 +647,35 @@ extern "C" int fused_dsc_launch(
   p.h = h; p.w = w; p.cin = cin; p.cmid = cmid; p.cout = cout;
   p.h2 = (h + stride - 1) / stride;
   p.w2 = (w + stride - 1) / stride;
-  p.tile_rows = static_cast<int>(pl.tile_rows);
-  p.n_tiles = static_cast<int>(pl.n_tiles);
-  p.units = static_cast<int>(pl.units);
-  p.kx = static_cast<int>(pl.kx);
-  p.kp = static_cast<int>(pl.kp);
-  p.kxs = static_cast<int>(pl.kxs);
-  p.kps = static_cast<int>(pl.kps);
-  p.wf1 = static_cast<int>(pl.wf1);
-  p.runs = static_cast<int>(pl.runs);
-  p.off_wproj = static_cast<int>(pl.off_wproj);
-  p.off_params = static_cast<int>(pl.off_params);
-  p.off_x = static_cast<int>(pl.off_x);
-  p.x_bytes = static_cast<int>(pl.x_bytes);
-  p.off_f1 = static_cast<int>(pl.off_f1);
-  p.off_f2 = static_cast<int>(pl.off_f2);
-  p.f1_trash = static_cast<int>(((pl.tile_rows - 1) * stride + 3) * pl.wf1 *
-                                cmid);
+  p.tile_rows = tile_rows;
+  p.n_tiles = n_tiles;
+  p.units = units;
+  p.kx = kx; p.kp = kp; p.kxs = kxs; p.kps = kps; p.wf1 = wf1; p.runs = runs;
+  p.off_wproj = static_cast<int>(ly.off_wproj);
+  p.off_params = static_cast<int>(ly.off_params);
+  p.off_x = static_cast<int>(ly.off_x);
+  p.x_bytes = static_cast<int>(ly.x_bytes);
+  p.off_f1 = static_cast<int>(ly.off_f1);
+  p.off_f2 = static_cast<int>(ly.off_f2);
+  p.f1_trash = ((tile_rows - 1) * stride + 3) * wf1 * cmid;
   p.zp_f1 = zp_f1; p.zp_f2 = zp_f2; p.zp_out = zp_out;
   p.q6_f1 = q6_f1 < 127 ? q6_f1 : 127;
   p.q6_f2 = q6_f2 < 127 ? q6_f2 : 127;
   // The opt-in above 48 KB is made once per kernel, device and size, so a
   // launch inside a CUDA-graph capture makes no attribute call.
   const int k = kernel_index(stride, cin);
-  cudaError_t e = opt_in(kKernels[k], static_cast<size_t>(pl.smem),
+  cudaError_t e = opt_in(kKernels[k], static_cast<size_t>(smem),
                          g_opted_in[k]);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kKernels[k]<<<static_cast<unsigned>(pl.grid), kThreads,
-                static_cast<size_t>(pl.smem),
+  kKernels[k]<<<static_cast<unsigned>(grid), kThreads,
+                static_cast<size_t>(smem),
                 static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* fused_dsc_error_string(int code) {
   if (code == kBadArgs)
-    return "widths, stride or tile rows the fused DSC kernel does not take";
-  if (code == kTooBig)
-    return "no tile of the map fits in the card's shared memory";
+    return "widths or stride the fused DSC kernel does not take";
+  if (code == kBadPlan) return g_refusal;
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -87,21 +87,21 @@
 // with TMA multicast (8.5 GB) ran no faster. At decode, T = 4, it reads
 // the 337 MB of weights (0.10 ms): bound by bytes.
 //
-// kernels/fused_ffn.py::plan states each launch (cluster, columns, chunk,
-// ring stages, groups, shared memory, grid, workspace); fused_ffn_plan below
-// computes the same numbers, and the launcher takes its launch from it.
+// kernels/fused_ffn.py::plan decides each launch (cluster, columns, chunk,
+// ring stages, groups, shared memory, grid, workspace). The launcher takes
+// its 13 numbers and decides nothing itself: check_plan below refuses a plan
+// the kernel cannot run safely or completely.
 //
 // Interface: plain C, loaded with ctypes. The launcher takes device
-// pointers (the workspace is allocated by the caller), sizes and a stream;
-// launches on that stream, does not synchronise, allocates nothing and
-// returns cudaGetLastError() (or kEncodeFailed / kNoCluster).
+// pointers (the workspace is allocated by the caller), sizes, the plan and
+// a stream; launches on that stream, does not synchronise, allocates
+// nothing and returns cudaGetLastError() (or kEncodeFailed / kNoCluster /
+// kBadPlan).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <algorithm>
-#include <climits>
 #include <cstdint>
 #include <cstdio>
 
@@ -112,8 +112,10 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kNoCluster = -2;   // no cluster of this launch fits the device
+constexpr int kBadPlan = -3;     // a handed plan the kernel cannot run
 int g_cluster_size = 0;          // the refused launch, for the error string
 int g_cluster_smem = 0;
+const char* g_refusal = "";      // which check refused the plan
 
 enum Act { kSilu = 0, kGelu = 1, kReluSq = 2, kRelu = 3 };
 
@@ -155,7 +157,7 @@ void launch_reduce(const float* ws, void* y, int groups, int t, int t_pad,
 }
 
 // ===========================================================================
-// The launch plan (kernels/fused_ffn.py::plan mirrors it)
+// The check of a handed plan (kernels/fused_ffn.py::plan decides it)
 // ===========================================================================
 
 constexpr int kBT = 64;            // bf16: token rows per block (wgmma M)
@@ -180,15 +182,11 @@ constexpr uint32_t kHPiece = kBT * kPiece * 2;  // one block's h piece: 8 KB
 constexpr int kBarBytes = 8 * (2 * kMaxStages + 2);
 constexpr int kMaxCluster = 8;      // the portable cluster size
 constexpr int kMaxWidth = 256;      // wgmma's widest N: a full cluster only
-constexpr int kMaxCover = kMaxCluster * 2 * kMaxWidth;   // d_model one cluster
-                                                         // covers
-constexpr int kMaxPrefillGroups = 4;
 
 constexpr int kF32BT = 16;          // f32: token rows per block
 constexpr int kF32Threads = 256;
 constexpr int kF32Cols = 128;       // d_ff / d_model columns per sub-block
 constexpr int kF32K = 32;           // k-step of the staged x
-constexpr int kF32HBytes = 128 * 1024;   // shared memory for the h tile
 
 // Bytes of one ring stage: an expansion stage (two x boxes, two Wg and two
 // Wu boxes) or a projection stage (32 rows of Wd x 2 NW columns).
@@ -198,124 +196,83 @@ __host__ __device__ constexpr uint32_t slot_bytes(int nw) {
              : static_cast<uint32_t>(kProjK * 4 * nw);
 }
 
+// A launch: the 13 numbers of kernels/fused_ffn.py::Plan, in its order.
 struct LaunchPlan {
   int block_t, cluster, cols, chunk, stages, groups, per_group, chunks;
   long long smem, grid_x, grid_y, grid_z, ws_bytes;
 };
 
-int ceil_div(long long a, long long b) {
-  return static_cast<int>((a + b - 1) / b);
+long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
+
+// The widths (output columns per consumer warpgroup) launch_bf16 is
+// instantiated for.
+bool is_width(int nw) {
+  return nw == 32 || nw == 64 || nw == 128 || nw == 224 || nw == kMaxWidth;
 }
 
-// The bf16 cluster size and per-warpgroup width for d_model d: the smallest
-// cluster whose blocks' two warpgroups cover d with a width of 32, 64, 128
-// or 224 columns, else a cluster of 8 at 256 (3585 to 4096 columns; a
-// smaller cluster at 256 would put a token tile on half the SMs). 0: d is
-// wider than one cluster covers (kMaxCover).
-int pick_width(int d, int* cluster) {
-  static const int kWidths[5] = {32, 64, 128, 224, kMaxWidth};
-  for (int c = 1; c <= kMaxCluster; c *= 2) {
-    const int need = ceil_div(d, 2 * c);
-    for (int nw : kWidths)
-      if (need <= nw && (nw < kMaxWidth || c == kMaxCluster)) {
-        *cluster = c;
-        return nw;
-      }
-  }
-  return 0;
+// The bf16 kernel's shared memory: 1 KB of alignment slack, the ring, one
+// chunk of h (a piece per block of the cluster), the barriers.
+long long bf16_smem(int nw, int cluster, int stages) {
+  return 1024 + static_cast<long long>(stages) * slot_bytes(nw)
+       + static_cast<long long>(cluster) * kHPiece + kBarBytes;
 }
 
-// d_model slices: 1 where one cluster covers d, else the fewest slices of
-// at most kMaxCover columns; the cluster and width then cover one slice.
-int pick_slices(int d, int* cluster, int* nw) {
-  const int slices = d <= kMaxCover ? 1 : ceil_div(d, kMaxCover);
-  *nw = pick_width(ceil_div(d, slices), cluster);
-  return slices;
+int refuse(const char* why) {
+  g_refusal = why;
+  return kBadPlan;
 }
 
-// Chunks per d_ff group where the clusters of the token tiles fill the card:
-// `clusters` clusters walk `chunks` chunks each, `resident` of them at a
-// time. A plan costs waves x chunks a cluster walks; d_ff is cut into at most
-// kMaxPrefillGroups groups where that saves a tenth of the cost (the groups'
-// f32 partials and their sum take a few per cent).
-int prefill_per_group(int clusters, int chunks, int resident) {
-  auto cost = [&](int per) {
-    return static_cast<long long>(
-               ceil_div(static_cast<long long>(clusters) * ceil_div(chunks, per),
-                        resident)) * per;
-  };
-  int best = chunks;
-  for (int g = 2; g <= kMaxPrefillGroups; ++g) {
-    const int per = ceil_div(chunks, g);
-    if (10 * cost(per) <= 9 * cost(chunks) && cost(per) < cost(best))
-      best = per;
-  }
-  return best;
-}
-
-// dtype 1 (bf16) or 0 (f32); resident: clusters of this launch resident at
-// once (bf16, at least 1; f32 does not read it). Returns 0, or
-// cudaErrorInvalidValue.
-int make_plan(int dtype, int t, int d, int f, int n_sm, int resident,
-              LaunchPlan* pl) {
-  if (t <= 0 || d <= 0 || f <= 0 || d % 16 || f % 16 || n_sm <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long tiles_ll = (static_cast<long long>(t) + kBT - 1) / kBT;
+// 0 if the kernel runs `pl` for dtype (0 f32, 1 bf16), x (t, d) and d_ff f
+// safely and completely; else kBadPlan, with g_refusal naming the check.
+int check_plan(int dtype, int t, int d, int f, const LaunchPlan& pl) {
+  if (pl.grid_y > 65535 || pl.grid_z > 65535)
+    return refuse("grid y or z over 65535");
+  if (pl.per_group < 1 || pl.groups != cdiv(pl.chunks, pl.per_group))
+    return refuse("groups of per_group chunks do not cover the chunks");
+  long long ws = 0;   // f32 partials of the groups
   if (dtype == 1) {
-    int c = 0, nw = 0;
-    const int slices = pick_slices(d, &c, &nw);
-    if (nw == 0 || tiles_ll > 65535 || resident < 1)
-      return static_cast<int>(cudaErrorInvalidValue);
-    const int tiles = static_cast<int>(tiles_ll);
-    pl->block_t = kBT;
-    pl->cluster = c;
-    pl->cols = 2 * nw;
-    pl->chunk = c * kPiece;
-    pl->chunks = ceil_div(f, pl->chunk);
-    // groups that would fill the card (decode), else groups that fill the
-    // last wave of clusters (prefill)
-    const int want = n_sm / (tiles * c * slices);
-    pl->per_group =
-        want <= 1 ? prefill_per_group(tiles * slices, pl->chunks, resident)
-                  : ceil_div(pl->chunks, std::min(want, pl->chunks));
-    pl->groups = ceil_div(pl->chunks, pl->per_group);
-    const long long slot = slot_bytes(nw);
-    const long long hbytes = static_cast<long long>(c) * kHPiece;
-    long long stages = (kSmemLimit - 1024 - hbytes - kBarBytes) / slot;
-    pl->stages = static_cast<int>(stages < kMaxStages ? stages : kMaxStages);
-    pl->smem = 1024 + pl->stages * slot + hbytes + kBarBytes;
-    pl->grid_x = static_cast<long long>(c) * slices;
-    pl->grid_y = tiles;
-    pl->grid_z = pl->groups;
-    pl->ws_bytes = pl->groups > 1 ? 4LL * pl->groups * t * d : 0;
-    return pl->stages >= 2 ? 0 : static_cast<int>(cudaErrorInvalidValue);
+    const int c = pl.cluster, nw = pl.cols / 2;
+    if (pl.block_t != kBT) return refuse("block_t is not 64");
+    if (c != 1 && c != 2 && c != 4 && c != kMaxCluster)
+      return refuse("cluster is not 1, 2, 4 or 8");
+    if (pl.cols % 2 || !is_width(nw))
+      return refuse("cols / 2 is not 32, 64, 128, 224 or 256");
+    if (nw == kMaxWidth && c != kMaxCluster)
+      return refuse("256 columns a warpgroup below a full cluster of 8");
+    if (pl.grid_x % c || pl.grid_x * pl.cols < d)
+      return refuse("grid x is not whole clusters whose slices cover "
+                    "d_model");
+    if (pl.chunk != c * kPiece) return refuse("chunk != cluster * 64");
+    if (pl.chunks != cdiv(f, pl.chunk))
+      return refuse("chunks of chunk columns do not cover d_ff");
+    if (pl.grid_y != cdiv(t, kBT) || pl.grid_z != pl.groups)
+      return refuse("grid y, z are not the token tiles and the groups");
+    if (pl.stages < 2 || pl.stages > kMaxStages)
+      return refuse("stages outside [2, 6]");
+    if (pl.smem != bf16_smem(nw, c, pl.stages) || pl.smem > kSmemLimit)
+      return refuse("smem is not the kernel's for its width, cluster and "
+                    "stages, or over 232448 bytes");
+    if (pl.groups > 1) ws = 4LL * pl.groups * t * d;
+  } else {
+    if (pl.block_t != kF32BT || pl.cluster != 1 || pl.cols != d ||
+        pl.stages != 0)
+      return refuse("block_t, cluster, cols, stages are not the f32 "
+                    "kernel's 16, 1, d_model, 0");
+    if (pl.chunk != pl.per_group * kF32Cols)
+      return refuse("chunk != per_group * 128");
+    if (pl.chunks != cdiv(f, kF32Cols))
+      return refuse("chunks of 128 columns do not cover d_ff");
+    if (pl.grid_x != cdiv(t, kF32BT) || pl.grid_y != pl.groups ||
+        pl.grid_z != 1)
+      return refuse("grid is not the token tiles and the d_ff splits");
+    if (pl.smem != 4LL * kF32BT * (pl.chunk + kF32K) || pl.smem > kSmemLimit)
+      return refuse("smem is not the f32 kernel's for its chunk, or over "
+                    "232448 bytes");
+    ws = 4LL * pl.groups * pl.grid_x * kF32BT * d;
   }
-  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
-  // f32: as few d_ff splits as the h tile allows, but at least two blocks
-  // per SM where d_ff has room.
-  const long long tiles = (static_cast<long long>(t) + kF32BT - 1) / kF32BT;
-  if (tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const int max_chunks = kF32HBytes / (kF32BT * 4 * kF32Cols);
-  const int chunks = ceil_div(f, kF32Cols);
-  const int by_smem = ceil_div(chunks, max_chunks);
-  const int by_sm = ceil_div(2LL * n_sm, tiles);
-  int splits = by_smem > by_sm ? by_smem : by_sm;
-  splits = splits < chunks ? splits : chunks;
-  const int per = ceil_div(chunks, splits);
-  pl->block_t = kF32BT;
-  pl->cluster = 1;
-  pl->cols = d;
-  pl->chunk = per * kF32Cols;
-  pl->chunks = chunks;
-  pl->per_group = per;
-  pl->groups = ceil_div(chunks, per);
-  pl->stages = 0;
-  pl->smem = 4LL * (kF32BT * pl->chunk + kF32BT * kF32K);
-  pl->grid_x = tiles;
-  pl->grid_y = pl->groups;
-  pl->grid_z = 1;
-  pl->ws_bytes = 4LL * pl->groups * tiles * kF32BT * d;
-  return pl->groups <= 65535 ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  if (pl.ws_bytes < ws)
+    return refuse("ws_bytes below the groups' f32 partials");
+  return 0;
 }
 
 // ===========================================================================
@@ -928,38 +885,24 @@ int launch_f32(const LaunchPlan& pl, const F32Params& p, void* y,
 
 }  // namespace
 
-// The launch for dtype (0 float32, 1 bfloat16), T, d_model, d_ff on a card
-// of n_sm SMs where `resident` of its clusters fit at once, as 13 numbers:
-// block_t, cluster, cols, chunk, stages, groups, per_group, chunks, smem,
-// grid x, y, z, workspace bytes. Returns 0 or cudaErrorInvalidValue
-// (kernels/fused_ffn.py::plan computes the same).
-extern "C" int fused_ffn_plan(int dtype, int t, int d, int f, int n_sm,
-                              int resident, long long* out) {
-  LaunchPlan pl;
-  const int r = make_plan(dtype, t, d, f, n_sm, resident, &pl);
-  if (r != 0) return r;
-  const long long v[13] = {pl.block_t, pl.cluster, pl.cols, pl.chunk,
-                           pl.stages, pl.groups, pl.per_group, pl.chunks,
-                           pl.smem, pl.grid_x, pl.grid_y, pl.grid_z,
-                           pl.ws_bytes};
-  for (int i = 0; i < 13; ++i) out[i] = v[i];
-  return 0;
-}
-
 // dtype: 0 = float32, 1 = bfloat16. wg null: ungated. act: 0 silu, 1 gelu
-// (tanh), 2 relu_sq, 3 relu. ws: the plan's workspace bytes (null when 0);
-// a smaller ws_bytes is refused. n_sm: the card's SM count; resident: the
-// launch's clusters resident at once (fused_ffn_max_clusters; bf16).
+// (tanh), 2 relu_sq, 3 relu. The plan: kernels/fused_ffn.py::Plan's 13
+// numbers; ws holds its ws_bytes (null when 0).
 extern "C" int fused_ffn_launch(
     const void* x, const void* wg, const void* wu, const void* wd, void* ws,
-    long long ws_bytes, void* y, int dtype, int t, int d, int f, int act,
-    int n_sm, int resident, void* stream) {
-  LaunchPlan pl;
-  const int r = make_plan(dtype, t, d, f, n_sm, resident, &pl);
-  if (r != 0) return r;
-  if (act < 0 || act > 3 || !x || !wu || !wd || !y || ws_bytes < pl.ws_bytes ||
-      (pl.ws_bytes > 0 && !ws))
+    void* y, int dtype, int t, int d, int f, int act, int block_t,
+    int cluster, int cols, int chunk, int stages, int groups, int per_group,
+    int chunks, int smem, int grid_x, int grid_y, int grid_z,
+    long long ws_bytes, void* stream) {
+  if (t <= 0 || d <= 0 || f <= 0 || d % 16 || f % 16 ||
+      (dtype != 0 && dtype != 1) || act < 0 || act > 3 || !x || !wu || !wd ||
+      !y || (ws_bytes > 0 && !ws))
     return static_cast<int>(cudaErrorInvalidValue);
+  const LaunchPlan pl = {block_t, cluster, cols, chunk, stages, groups,
+                         per_group, chunks, smem, grid_x, grid_y, grid_z,
+                         ws_bytes};
+  const int r = check_plan(dtype, t, d, f, pl);
+  if (r != 0) return r;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     Bf16Params p;
@@ -987,17 +930,23 @@ extern "C" int fused_ffn_launch(
   return launch_f32(pl, p, y, s);
 }
 
-// How many clusters of the bf16 launch for (t, d, f) can be resident at
-// once on the current device (cudaOccupancyMaxActiveClusters), or a
-// negative error code. It depends on d alone: the cluster and the shared
-// memory, which the plan for any residency (here 1) gives alike.
-extern "C" int fused_ffn_max_clusters(int t, int d, int f, int n_sm) {
-  LaunchPlan pl;
-  const int r = make_plan(1, t, d, f, n_sm, 1, &pl);
-  if (r != 0) return -r;
+// How many clusters of the bf16 kernel, `cluster` blocks of width nw with
+// `smem` bytes of shared memory each (a plan's), can be resident at once on
+// the current device (cudaOccupancyMaxActiveClusters), or a negative error
+// code.
+extern "C" int fused_ffn_max_clusters(int cluster, int nw, int smem) {
+  if ((cluster != 1 && cluster != 2 && cluster != 4 &&
+       cluster != kMaxCluster) || !is_width(nw) || smem < 1 ||
+      smem > kSmemLimit)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  LaunchPlan pl = {};
+  pl.cluster = cluster;
+  pl.smem = smem;
+  pl.grid_x = cluster;
+  pl.grid_y = pl.grid_z = 1;
   int n = -1;
   cudaError_t e = cudaSuccess;
-  switch (pl.cols / 2) {
+  switch (nw) {
     case 32: e = max_clusters<32>(pl, &n); break;
     case 64: e = max_clusters<64>(pl, &n); break;
     case 128: e = max_clusters<128>(pl, &n); break;
@@ -1014,6 +963,7 @@ extern "C" const char* fused_ffn_error_string(int code) {
              g_last_encode_result);
     return buf;
   }
+  if (code == kBadPlan) return g_refusal;
   if (code == kNoCluster) {
     snprintf(buf, sizeof(buf),
              "no cluster of %d blocks with %d bytes of shared memory each fits "

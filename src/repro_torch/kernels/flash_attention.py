@@ -10,9 +10,9 @@ needs no repeated K and V. The plain PyTorch versions are
 
 The bf16 kernel runs one warpgroup per 64-row query tile: ``wgmma`` for
 both products with S, P and O in registers, Q and a 2-stage K/V ring loaded
-by TMA. ``plan`` states in Python what one bf16 launch is handed (tiles,
-padded head dim, ring depth, shared memory, grid and block order), so the
-CPU tests can check it.
+by TMA. ``plan`` gives one bf16 launch (tiles, padded head dim, ring
+depth, shared memory, grid and block order). The launcher in the source
+takes its shared memory and refuses a value other than its kernel's own.
 
 The launch is the operator ``repro_torch::flash_attention``: its CUDA impl
 is ``flash_attention_cuda``, its CPU impl ``ref.mha_ref``, its fake impl
@@ -41,15 +41,15 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.fused_dsc import check_tensor, on_card
+from repro_torch.kernels.build import check_tensor, on_card
 from repro_torch.runtime import trace
 
 LAUNCHES = 0
 
 _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# 4 pointers, 10 ints, 2 floats, the stream: the order of
-# flash_attention_launch's parameters in csrc/flash_attention.cu.
-_ARGTYPES = [_vp] * 4 + [_int] * 10 + [_float] * 2 + [_vp]
+# 4 pointers, 10 ints, 2 floats, the plan's shared memory, the stream: the
+# order of flash_attention_launch's parameters in csrc/flash_attention.cu.
+_ARGTYPES = [_vp] * 4 + [_int] * 10 + [_float] * 2 + [_int, _vp]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # The bf16 kernel's constants (csrc/flash_attention.cu: kBQ, kBK, kBox,
@@ -102,14 +102,7 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_launch.restype = _int
         lib.flash_attention_error_string.argtypes = [_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
-        lib.flash_attention_bf16_smem_bytes.argtypes = [_int]
-        lib.flash_attention_bf16_smem_bytes.restype = _int
     return lib
-
-
-def kernel_smem_bytes(d: int) -> int:
-    """The shared memory the built bf16 kernel asks for at head dim d."""
-    return _lib().flash_attention_bf16_smem_bytes(d)
 
 
 def _check_launch(q, k, v, window, softcap) -> Tuple[int, int, int, int]:
@@ -151,9 +144,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         (None: all). softcap: s -> softcap * tanh(s / softcap).
       sm_scale: score scale after the dot (default d ** -0.5).
     Returns: (B, Tq, H, d) in q's dtype, on q's device and current stream.
-    The checks and the scale, everything before the launch (the built
-    launcher plans the grid), are the span ``flash.plan``; a bf16 launch's
-    ``plan`` gives its grid as an arg.
+    The checks, the scale and a bf16 launch's ``plan``, everything before
+    the launch, are the span ``flash.plan``; the plan gives its grid as an
+    arg.
     """
     global LAUNCHES
     with trace.span("flash.plan") as rec:
@@ -167,8 +160,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError("q, k and v must start on 16-byte boundaries "
                              "(TMA)")
         scale = float(sm_scale if sm_scale is not None else d ** -0.5)
-        if rec is not None and q.dtype == torch.bfloat16:
-            rec.args["grid"] = plan(b, tq, tk, h, hkv, d, causal).grid
+        pl = (plan(b, tq, tk, h, hkv, d, causal)
+              if q.dtype == torch.bfloat16 else None)
+        if rec is not None and pl is not None:
+            rec.args["grid"] = pl.grid
     out = torch.empty_like(q)
     lib = _lib()
     with torch.cuda.device(dev):
@@ -177,10 +172,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPES[q.dtype], b, h, hkv, tq, tk, d, int(causal),
             -1 if window is None else int(window), int(softcap is not None),
-            float(softcap or 0.0), scale, stream)
+            float(softcap or 0.0), scale, pl.smem_bytes if pl else 0, stream)
     if err != 0:
         msg = lib.flash_attention_error_string(err).decode()
-        raise RuntimeError(f"flash_attention kernel launch failed: {msg} ({err})")
+        raise RuntimeError(f"flash_attention kernel launch failed: {msg} "
+                           f"({err}); {pl}")
     LAUNCHES += 1
     return out
 

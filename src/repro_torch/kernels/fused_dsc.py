@@ -9,9 +9,11 @@ The kernel is a persistent grid: each thread block stages the weights once
 (transposed, K zero-padded to the int8 MMA depth) and walks units of (image,
 tile of ``tile_rows`` output rows), prefetching the next unit's haloed input
 strip while it computes the current one. Both 1x1 products run on the int8
-tensor cores; the depthwise runs 4 channels a thread. ``plan`` states in
-Python what one launch is handed, as the launcher computes it
-(``fused_dsc_plan`` in the source), so the CPU tests can check it.
+tensor cores; the depthwise runs 4 channels a thread. ``plan`` decides
+each launch: the tile height, the grid and the shared-memory layout. The
+launcher in the source takes its numbers as they are and refuses a plan
+whose layout, tiles, units or grid its kernel cannot run, so the CPU tests
+of ``plan`` pin what the card runs.
 
 ``LAUNCHES`` counts the kernel launches this wrapper made, so a run can show
 that its main path went through the kernel.
@@ -24,17 +26,17 @@ import dataclasses
 from typing import Iterator, Optional, Tuple
 
 import torch
-from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import check_tensor
 from repro_torch.runtime import trace
 
 LAUNCHES = 0
 
-_vp, _int, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# 11 pointers, 14 ints, the stream: the order of fused_dsc_launch's
-# parameters in csrc/fused_dsc.cu.
-_ARGTYPES = [_vp] * 11 + [_int] * 14 + [_vp]
+_vp, _int = ctypes.c_void_p, ctypes.c_int
+# 11 pointers, 7 ints, the plan's 12 numbers, 5 ints, the stream: the order
+# of fused_dsc_launch's parameters in csrc/fused_dsc.cu.
+_ARGTYPES = [_vp] * 11 + [_int] * 24 + [_vp]
 
 # The kernel's constants (csrc/fused_dsc.cu) and the card's shared memory.
 THREADS = 256
@@ -51,7 +53,7 @@ N_SM_H100 = 132
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """What one launch is handed (``fused_dsc_plan`` in the source)."""
+    """What one launch is handed: ``fused_dsc_launch`` takes these numbers."""
 
     tile_rows: int          # output rows per unit
     n_tiles: int            # units per image
@@ -67,7 +69,7 @@ class Plan:
     runs: int               # depthwise runs of RUN columns per output row
 
     def as_tuple(self) -> Tuple[int, ...]:
-        """The 12 numbers ``fused_dsc_plan`` reports, in its order."""
+        """The 12 numbers, in ``fused_dsc_launch``'s order."""
         return (self.tile_rows, self.n_tiles, self.units, self.blocks_per_sm,
                 self.grid, self.smem_bytes, self.kx, self.kp, self.kxs,
                 self.kps, self.wf1, self.runs)
@@ -174,24 +176,9 @@ def _lib() -> ctypes.CDLL:
         lib.fused_dsc_launch.restype = _int
         lib.fused_dsc_error_string.argtypes = [_int]
         lib.fused_dsc_error_string.restype = ctypes.c_char_p
-        lib.fused_dsc_plan.argtypes = [_int] * 9 + [ctypes.POINTER(_ll)]
-        lib.fused_dsc_plan.restype = _int
         lib.fused_dsc_occupancy.argtypes = [_int, _int, _int]
         lib.fused_dsc_occupancy.restype = _int
     return lib
-
-
-def kernel_plan(batch: int, h: int, w: int, cin: int, cmid: int, cout: int,
-                stride: int, tile_rows: Optional[int] = None,
-                n_sm: int = N_SM_H100) -> Tuple[int, ...]:
-    """The 12 numbers the built launcher computes for this launch."""
-    out = (_ll * 12)()
-    err = _lib().fused_dsc_plan(batch, h, w, cin, cmid, cout, stride,
-                                tile_rows or 0, n_sm, out)
-    if err != 0:
-        raise ValueError(f"fused_dsc_plan refused {batch}x{h}x{w}x{cin}, "
-                         f"M {cmid}, N {cout}, stride {stride} ({err})")
-    return tuple(out)
 
 
 def occupancy(stride: int, cin: int, smem_bytes: int) -> int:
@@ -203,28 +190,6 @@ def occupancy(stride: int, cin: int, smem_bytes: int) -> int:
         raise RuntimeError(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor "
                            f"failed ({-n})")
     return n
-
-
-def on_card(t: torch.Tensor) -> bool:
-    """Whether ``t`` takes a kernel's route: a CUDA tensor, or a fake one
-    (``FakeTensorMode``), the dry run's shape-only stand-in for a CUDA
-    tensor on any build of torch."""
-    return t.device.type == "cuda" or isinstance(t, FakeTensor)
-
-
-def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, shape,
-                 device: torch.device) -> None:
-    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
-    ``device``: what every launcher checks before it passes a pointer."""
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def _check_launch(args, stride: int, tile_rows: Optional[int]):
@@ -309,10 +274,11 @@ def fused_dsc_cuda(x_q, w_exp, w_dw9, w_proj, b_exp, b_dw, b_proj,
                 w_proj.data_ptr(), b_exp.data_ptr(), b_dw.data_ptr(),
                 b_proj.data_ptr(), m_exp.data_ptr(), m_dw.data_ptr(),
                 m_proj.data_ptr(), out.data_ptr(),
-                b, h, w, cin, cmid, cout, stride, pl.tile_rows, n_sm,
+                b, h, w, cin, cmid, cout, stride, *pl.as_tuple(),
                 zp_f1, zp_f2, zp_out, int(q6[0]), int(q6[1]), stream)
     if err != 0:
         msg = lib.fused_dsc_error_string(err).decode()
-        raise RuntimeError(f"fused_dsc kernel launch failed: {msg} ({err})")
+        raise RuntimeError(f"fused_dsc kernel launch failed: {msg} ({err}); "
+                           f"{pl}")
     LAUNCHES += 1
     return out

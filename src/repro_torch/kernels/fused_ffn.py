@@ -18,9 +18,10 @@ token tiles' clusters would leave their last wave part empty (``resident``
 clusters at once); else the kernel writes nothing but y. The f32 kernel
 (tests and the f32 checks) is scalar and splits d_ff over blocks with f32
 partials.
-``plan`` states in Python what one launch is handed, as the launcher
-computes it (``fused_ffn_plan`` in the source), so the CPU tests can check
-it.
+``plan`` decides each launch. The launcher in the source takes its 13
+numbers as they are and refuses a plan its kernel cannot run safely or
+completely (``check_plan`` there), so the CPU tests of ``plan`` pin what
+the card runs.
 
 The launch is the operator ``repro_torch::fused_ffn``: its CUDA impl is
 ``fused_ffn_cuda``, its CPU impl the plain version, its fake impl shape and
@@ -54,15 +55,16 @@ import torch.nn.functional as F
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build, ref
-from repro_torch.kernels.fused_dsc import check_tensor, on_card
+from repro_torch.kernels.build import check_tensor, on_card
 from repro_torch.runtime import trace
 
 LAUNCHES = 0
 
 _vp, _int, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# x, wg, wu, wd, ws, ws_bytes, y, 7 ints, the stream: the order of
-# fused_ffn_launch's parameters in csrc/fused_ffn.cu.
-_ARGTYPES = [_vp] * 5 + [_ll, _vp] + [_int] * 7 + [_vp]
+# x, wg, wu, wd, ws, y, 5 ints, the plan's 13 numbers (the workspace bytes
+# last), the stream: the order of fused_ffn_launch's parameters in
+# csrc/fused_ffn.cu.
+_ARGTYPES = [_vp] * 6 + [_int] * 17 + [_ll, _vp]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ACT_CODES = {"silu": 0, "gelu": 1, "relu_sq": 2, "relu": 3}
 
@@ -91,7 +93,7 @@ F32_BLOCK_T, F32_COLS, F32_K, F32_H_BYTES = 16, 128, 32, 128 * 1024
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """What one launch is handed (``fused_ffn_plan`` in the source)."""
+    """What one launch is handed: ``fused_ffn_launch`` takes these numbers."""
 
     block_t: int            # token rows per block
     cluster: int            # blocks per cluster along d_model (bf16)
@@ -106,7 +108,7 @@ class Plan:
     ws_bytes: int           # f32 partials in device memory; 0: none
 
     def as_tuple(self) -> Tuple[int, ...]:
-        """The 13 numbers ``fused_ffn_plan`` reports, in its order."""
+        """The 13 numbers, in ``fused_ffn_launch``'s order."""
         return (self.block_t, self.cluster, self.cols, self.chunk,
                 self.stages, self.groups, self.per_group, self.chunks,
                 self.smem_bytes, *self.grid, self.ws_bytes)
@@ -231,28 +233,19 @@ def _lib() -> ctypes.CDLL:
         lib.fused_ffn_launch.restype = _int
         lib.fused_ffn_error_string.argtypes = [_int]
         lib.fused_ffn_error_string.restype = ctypes.c_char_p
-        lib.fused_ffn_plan.argtypes = [_int] * 6 + [ctypes.POINTER(_ll)]
-        lib.fused_ffn_plan.restype = _int
-        lib.fused_ffn_max_clusters.argtypes = [_int] * 4
+        lib.fused_ffn_max_clusters.argtypes = [_int] * 3
         lib.fused_ffn_max_clusters.restype = _int
     return lib
 
 
-def kernel_plan(t: int, d: int, d_ff: int, dtype: torch.dtype, n_sm: int,
-                resident: int) -> Tuple[int, ...]:
-    """The 13 numbers the built launcher computes for this launch."""
-    out = (_ll * 13)()
-    err = _lib().fused_ffn_plan(_DTYPES[dtype], t, d, d_ff, n_sm, resident,
-                                out)
-    if err != 0:
-        raise ValueError(f"fused_ffn_plan refused T {t}, d {d}, d_ff {d_ff}")
-    return tuple(out)
-
-
 def max_active_clusters(t: int, d: int, d_ff: int, n_sm: int) -> int:
     """How many clusters of the bf16 launch can be resident at once on the
-    current card (``cudaOccupancyMaxActiveClusters``)."""
-    n = _lib().fused_ffn_max_clusters(t, d, d_ff, n_sm)
+    current card (``cudaOccupancyMaxActiveClusters``): asked of the cluster,
+    width and shared memory of ``plan`` at one resident cluster, which do
+    not depend on residency."""
+    pl = plan(t, d, d_ff, torch.bfloat16, n_sm, 1)
+    n = _lib().fused_ffn_max_clusters(pl.cluster, pl.cols // 2,
+                                      pl.smem_bytes)
     if n < 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed ({-n})")
     return n
@@ -302,8 +295,9 @@ def _check_launch(x, w_gate, w_up, w_down, act) -> Tuple[int, int, int]:
 
 
 def _check_plan(pl: Plan, dtype: torch.dtype) -> None:
-    """The built launcher's refusals of a plan (``make_plan``): a grid dim
-    past 65535, or a bf16 ring of fewer than two stages."""
+    """The launcher's refusals that a plan from ``plan`` can meet (the fake
+    impl refuses the same): a grid dim past 65535, or a bf16 ring of fewer
+    than two stages."""
     if dtype == torch.bfloat16:
         refused = pl.grid[1] > 65535 or pl.stages < 2
     else:
@@ -354,7 +348,7 @@ def fused_ffn_cuda(x: torch.Tensor, w_gate: Optional[torch.Tensor],
                          "(TMA)")
     if dev.type != "cuda":
         raise ValueError(f"fused_ffn_cuda needs CUDA tensors, got {dev}")
-    n_sm, resident, pl = launch_plan(t, d, f, x.dtype, dev)
+    _, _, pl = launch_plan(t, d, f, x.dtype, dev)
     ws = torch.empty(pl.ws_bytes // 4, dtype=torch.float32, device=dev)
     out = torch.empty_like(x)
     lib = _lib()
@@ -363,12 +357,13 @@ def fused_ffn_cuda(x: torch.Tensor, w_gate: Optional[torch.Tensor],
         err = lib.fused_ffn_launch(
             x.data_ptr(), None if w_gate is None else w_gate.data_ptr(),
             w_up.data_ptr(), w_down.data_ptr(),
-            ws.data_ptr() if pl.ws_bytes else None, pl.ws_bytes,
-            out.data_ptr(), _DTYPES[x.dtype], t, d, f, ACT_CODES[act], n_sm,
-            resident, stream)
+            ws.data_ptr() if pl.ws_bytes else None, out.data_ptr(),
+            _DTYPES[x.dtype], t, d, f, ACT_CODES[act], *pl.as_tuple(),
+            stream)
     if err != 0:
         msg = lib.fused_ffn_error_string(err).decode()
-        raise RuntimeError(f"fused_ffn kernel launch failed: {msg} ({err})")
+        raise RuntimeError(f"fused_ffn kernel launch failed: {msg} ({err}); "
+                           f"{pl}")
     LAUNCHES += 1
     return out
 

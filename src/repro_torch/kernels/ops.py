@@ -28,6 +28,7 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_dsc as _dsc
 from repro_torch.kernels import fused_ffn as _ffn
 from repro_torch.kernels import ref
+from repro_torch.kernels.build import on_card
 from repro_torch.runtime import trace
 
 
@@ -58,7 +59,7 @@ def ffn(x: torch.Tensor, w_gate: Optional[torch.Tensor], w_up: torch.Tensor,
     if isinstance(x, DTensor):
         return _local(lambda *a: ffn(*a, act=act), x, w_up,
                       x, w_gate, w_up, w_down)
-    if _dsc.on_card(x):
+    if on_card(x):
         return _ffn.fused_ffn(x, w_gate, w_up, w_down, act=act)
     if x.device.type == "cpu":
         return ref.fused_ffn_ref(x, w_gate, w_up, w_down, act=act)
@@ -74,7 +75,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               sm_scale=sm_scale)
     if isinstance(q, DTensor):
         return _local(lambda *a: attention(*a, **kw), q, None, q, k, v)
-    if _dsc.on_card(q):
+    if on_card(q):
         return _fa.flash_attention(q[:, :, None], k[:, :, None],
                                    v[:, :, None], **kw)[:, :, 0]
     if q.device.type == "cpu":
@@ -102,7 +103,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return _local(lambda q, k, v: mha(q, k, v, n_kv_heads=k.shape[2],
                                           block=block, **kw), q, None,
                       q, k, v)
-    if _dsc.on_card(q):
+    if on_card(q):
         return _fa.flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), block=block, **kw)
     if q.device.type == "cpu":

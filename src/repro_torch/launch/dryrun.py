@@ -20,7 +20,7 @@ shapes, and whose flop formulas count the kernels' own work. The
 fake tensors are ``cuda`` tensors where torch is built with CUDA; a
 CPU-only build cannot run autograd on fake ``cuda`` tensors, and there the
 fake tensors are on the CPU and take the same kernel route
-(``kernels.fused_dsc.on_card``). A train cell runs its first microbatch and
+(``kernels.build.on_card``). A train cell runs its first microbatch and
 counts it once per microbatch (``op_cost.trips``).
 
 Usage:

@@ -38,7 +38,7 @@ from torch.distributed.tensor import DTensor
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import fused_ffn as ffnlib
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.fused_dsc import on_card
+from repro_torch.kernels.build import on_card
 from repro_torch.runtime.actctx import (grad_dtype_guard, local_call,
                                         local_rank, mesh_size, partial_on,
                                         placed, sharded_on)

@@ -46,8 +46,8 @@ from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.configs.base import ArchConfig, MoESpec
 from repro_torch.core import fused_ffn as ffnlib
+from repro_torch.kernels.build import on_card
 from repro_torch.kernels.ref import ACTS
-from repro_torch.kernels.fused_dsc import on_card
 from repro_torch.models.layers import normal_leaf
 from repro_torch.runtime import trace
 from repro_torch.runtime.actctx import (local_call, local_rank, mesh_size,

@@ -1,13 +1,13 @@
 """What the fused-DSC kernel is handed, checked on the CPU.
 
-``repro_torch.kernels.fused_dsc.plan`` states each launch in Python: a
+``repro_torch.kernels.fused_dsc.plan`` decides each launch: a
 persistent grid of ``min(units, SMs x resident blocks)`` thread blocks, a
 unit being (image, tile of ``tile_rows`` output rows), each block staging
 the weights once (K-major, K padded to the int8 MMA depth) and walking its
 units; the shared-memory layout of the strip buffers, F1 and F2. The CUDA
 kernel runs only on a card (``tests/test_torch_kernels.py``, ``-m gpu``,
-and ``chip_smoke.py``, which also holds the built launcher's plan to this
-one). Here the plan's coverage and sizes, the wrapper's refusals, and a
+and ``chip_smoke.py``); its launcher takes this plan's numbers or refuses
+them. Here the plan's coverage and sizes, the wrapper's refusals, and a
 plain torch emulation of the kernel's tile walk (against the plain version
 and the JAX package) are held.
 """

@@ -1,6 +1,6 @@
 """What the fused-FFN kernel is handed, checked on the CPU.
 
-``repro_torch.kernels.fused_ffn.plan`` states each launch in Python: in
+``repro_torch.kernels.fused_ffn.plan`` decides each launch: in
 bf16 a cluster of C blocks along d_model, each holding 64 token rows x
 ``cols`` output columns in registers, walking its d_ff group in chunks of
 C x 64 columns whose h pieces are all-gathered in distributed shared
@@ -11,7 +11,7 @@ cluster covers up to 4096 columns (256 a warpgroup at a cluster of 8); a
 d_model wider is cut into slices along the grid's x, one cluster each, that
 recompute the expansion. The CUDA kernel
 runs only on a card (``tests/test_torch_kernels.py``, ``-m gpu``, and
-``chip_smoke.py``, which also holds the built launcher's plan to this one).
+``chip_smoke.py``); its launcher takes this plan's numbers or refuses them.
 Here the plan's coverage and sizes, the wrapper's refusals, and a plain
 torch emulation of the plan's tile walk (against the plain version and the
 JAX package) are held.

@@ -218,9 +218,6 @@ def test_flash_attention_cuda_matches_plain():
         (2, 65, 129, 2, 1, 64, False, 48, None),
         (2, 509, 509, 16, 8, 256, True, None, 50.0),
     ]
-    for d in range(16, 257, 16):   # what the launcher asks for is the plan
-        assert flash_attention.kernel_smem_bytes(d) == flash_attention.plan(
-            1, 64, 64, 1, 1, d).smem_bytes
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
         for b, tq, tk, h, hkv, d, causal, window, softcap in cases:
             q, k, v = (torch.randn((b, t, n, d), generator=gen, device="cuda")
@@ -346,8 +343,6 @@ def test_glm4_ffn_at_full_width_one_slice_on_the_card(t):
     assert (rec.args["slices"], rec.args["cluster"], rec.args["cols"],
             rec.args["resident"]) == (1, 8, 512, resident)
     assert (rec.args["groups"], rec.args["grid"]) == (pl.groups, pl.grid)
-    assert fused_ffn.kernel_plan(t, d, f, torch.bfloat16, n_sm,
-                                 resident) == pl.as_tuple()
     _close(got, ref.fused_ffn_ref(x, wg, wu, wd, act="silu"), 2e-2)
 
 
@@ -521,6 +516,80 @@ def test_fused_ffn_pads_a_d_ff_shard_the_kernel_refuses():
     assert fused_ffn.LAUNCHES == before + 1
     torch.cuda.synchronize()
     _close(got, ref.fused_ffn_ref(x, wg, wu, wd, act="silu"), 2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["dsc", "ffn", "flash"])
+def test_launchers_refuse_a_plan_their_kernel_cannot_run(kernel,
+                                                        monkeypatch):
+    """Each launcher runs the plan ``plan`` hands it, or refuses it before
+    anything launches, naming the check and the plan: a DSC plan whose
+    shared memory is 16 bytes past its layout's; an FFN plan of one ring
+    stage, and one of 96 columns a warpgroup (no kernel is built for it);
+    a flash plan whose shared memory is not the kernel's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the refusals are the CUDA "
+                    "launchers' own")
+    from dataclasses import replace
+
+    from repro_torch.kernels import flash_attention, fused_ffn
+
+    def handing(real, edit):
+        """``real`` (a ``plan``, or ``fused_ffn.launch_plan``) with
+        ``edit`` applied to the plan it gives."""
+        def bad(*args):
+            got = real(*args)
+            if isinstance(got, tuple):   # (SMs, resident clusters, plan)
+                return (*got[:-1], edit(got[-1]))
+            return edit(got)
+        return bad
+
+    def more_smem(pl):
+        return replace(pl, smem_bytes=pl.smem_bytes + 16)
+
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    if kernel == "dsc":
+        spec, hw, _ = CASES[0]
+        arrays, st = port_kernel_args(spec, hw)
+        xs = np.random.default_rng(30).integers(
+            -128, 128, (2, hw, hw, spec.cin)).astype(np.int8)
+        x, ts = torch_args(xs, arrays, device="cuda")
+        monkeypatch.setattr(fused_dsc, "plan",
+                            handing(fused_dsc.plan, more_smem))
+        cases = [(lambda: fused_dsc.fused_dsc_cuda(x, *ts, **st),
+                  "differ from the kernel's layout")]
+        counter = fused_dsc
+    elif kernel == "ffn":
+        x = torch.randn((64, 256), generator=gen, device="cuda").bfloat16()
+        wg, wu = (torch.randn((256, 512), generator=gen, device="cuda")
+                  .bfloat16() for _ in range(2))
+        wd = torch.randn((512, 256), generator=gen, device="cuda").bfloat16()
+        real = fused_ffn.launch_plan
+
+        def launch(**change):
+            monkeypatch.setattr(fused_ffn, "launch_plan", handing(
+                real, lambda pl: replace(pl, **change)))
+            return fused_ffn.fused_ffn_cuda(x, wg, wu, wd, act="silu")
+        cases = [(lambda: launch(stages=1), r"stages outside \[2, 6\]"),
+                 (lambda: launch(cols=192), "cols / 2 is not")]
+        counter = fused_ffn
+    else:
+        q = torch.randn((1, 64, 2, 64), generator=gen, device="cuda")
+        k, v = (torch.randn((1, 64, 1, 64), generator=gen, device="cuda")
+                for _ in range(2))
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        monkeypatch.setattr(flash_attention, "plan",
+                            handing(flash_attention.plan, more_smem))
+        cases = [(lambda: flash_attention.flash_attention_cuda(q, k, v),
+                  "shared memory is not the kernel's own")]
+        counter = flash_attention
+    for launch_bad, why in cases:
+        before = counter.LAUNCHES
+        with pytest.raises(RuntimeError, match=why) as err:
+            launch_bad()
+        assert "Plan(" in str(err.value)
+        assert counter.LAUNCHES == before
+    torch.cuda.synchronize()
 
 
 def _repeat_decode_attention(q, ck, cv, valid):
