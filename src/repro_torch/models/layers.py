@@ -33,6 +33,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 import torch.distributed._functional_collectives as funcol
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
@@ -109,18 +110,55 @@ def normal_leaf(gen, name: str, shape, scale: float, device, dtype):
 # ---------------------------------------------------------------------------
 
 
+def _rotated(head_dim: int, fraction: float) -> int:
+    return int(head_dim * fraction) // 2 * 2
+
+
 def rope_freqs(head_dim: int, fraction: float, theta: float):
-    rot = int(head_dim * fraction) // 2 * 2
+    rot = _rotated(head_dim, fraction)
     inv = 1.0 / (theta ** (np.arange(0, rot, 2, dtype=np.float32) / rot))
     return rot, torch.from_numpy(np.asarray(inv, np.float32))  # (rot/2,)
 
 
+# Constants the LM step multiplies by, each kept on its device once made:
+# a copy from host memory on every call would stop the host, since PyTorch
+# ends a blocking copy from pageable memory with a stream synchronise.
+_ON_DEVICE: Dict[tuple, torch.Tensor] = {}
+ROPE_TABLES = 0     # RoPE tables built: one per key and device in a process
+
+
+def on_device(key: tuple, like: torch.Tensor, make) -> torch.Tensor:
+    """``make()``, a host tensor, on ``like``'s device: copied once per
+    ``(key, like.device)`` and kept. On a fake ``like`` (the dry run's
+    ``FakeTensorMode``) it is made anew: a fake tensor belongs to its
+    mode."""
+    if isinstance(like, FakeTensor):
+        return make().to(like.device)
+    k = key + (like.device,)
+    if k not in _ON_DEVICE:
+        _ON_DEVICE[k] = make().to(like.device)
+    return _ON_DEVICE[k]
+
+
+def rope_table(head_dim: int, fraction: float, theta: float,
+               like: torch.Tensor) -> torch.Tensor:
+    """``rope_freqs``'s inverse frequencies on ``like``'s device, built
+    once per (head_dim, fraction, theta, device); ``ROPE_TABLES`` counts
+    the builds."""
+    def make():
+        global ROPE_TABLES
+        ROPE_TABLES += 1
+        return rope_freqs(head_dim, fraction, theta)[1]
+    return on_device(("rope", head_dim, fraction, theta), like, make)
+
+
 def apply_rope(x, positions, *, head_dim: int, fraction: float, theta: float):
     """x: (..., T, H, hd); positions: (..., T) integer."""
-    rot, inv = rope_freqs(head_dim, fraction, theta)
+    rot = _rotated(head_dim, fraction)
     if rot == 0:
         return x
-    ang = positions[..., None].float() * inv.to(x.device)   # (..., T, rot/2)
+    inv = rope_table(head_dim, fraction, theta, x)
+    ang = positions[..., None].float() * inv                 # (..., T, rot/2)
     cos = torch.cos(ang)[..., None, :]                       # (..., T, 1, rot/2)
     sin = torch.sin(ang)[..., None, :]
     xr, xp = x[..., :rot], x[..., rot:]

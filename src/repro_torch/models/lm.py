@@ -418,6 +418,13 @@ def _device(params) -> torch.device:
     return params["final_norm"].device
 
 
+def _embed_scale(cfg: ArchConfig, dt, like):
+    """sqrt(d_model) in ``dt`` on ``like``'s device, kept there
+    (``layers.on_device``)."""
+    return L.on_device(("embed_scale", cfg.d_model, dt), like,
+                       lambda: torch.tensor(cfg.d_model ** 0.5, dtype=dt))
+
+
 def _embed(params, cfg: ArchConfig, tokens, patches=None, frames=None):
     dt = getattr(torch, cfg.dtype)
     dev = _device(params)
@@ -428,7 +435,7 @@ def _embed(params, cfg: ArchConfig, tokens, patches=None, frames=None):
     x = params["embed"][_tokens(tokens, dev)].to(dt)
     if cfg.embed_scale:
         # sqrt(d_model) rounded to the compute dtype, multiplied in it
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=x.device)
+        x = x * _embed_scale(cfg, dt, x)
     if cfg.frontend == "vision" and patches is not None:
         x = torch.cat([torch.as_tensor(patches, device=dev).to(dt), x], dim=1)
     return x
@@ -445,12 +452,11 @@ def _embed_sharded(params, cfg: ArchConfig, tokens, patches, frames):
                          "B", None, None)
     table = params["embed"]
     tokens = placed(tokens, "B", *(None,) * (tokens.dim() - 1))
-    scale = cfg.d_model ** 0.5 if cfg.embed_scale else None
 
     def lookup(tab, tok):
         x = tab[tok].to(dt)
-        if scale is not None:
-            x = x * torch.tensor(scale, dtype=dt, device=x.device)
+        if cfg.embed_scale:
+            x = x * _embed_scale(cfg, dt, x)
         return (x,)
 
     out_pl = list(tokens.placements)

@@ -660,3 +660,58 @@ def test_grouped_decode_attention_on_the_card():
           f"{g_rise} B, repeat form {r_rise} B")
     assert g_rise < 32 * 2 ** 20, g_rise
     assert r_rise > 2 ** 29, r_rise
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,layers", [("glm4-9b", 3), ("gemma2-9b", 2)])
+def test_lm_steps_on_the_card_issue_no_synchronise(arch, layers):
+    """One ``lm.prefill`` of 1,500 ids and one ``lm.decode_step`` at full
+    width and cut depth (glm4-9b: d 4096, 32 / 2 heads of 128, half of each
+    rotated; gemma2-9b: its ``embed_scale`` embedding, windowed and global
+    layers), the flash and fused-FFN kernels, the ids already on the card,
+    after a warm-up, under the sync debug mode that raises on a host
+    synchronisation: none is raised, and no RoPE table is built after the
+    warm-up, which built one per key it added."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the sync debug mode and the kernels "
+                    "run only there")
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels import flash_attention, fused_ffn
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(registry.get(arch), n_layers=layers,
+                              attn_impl="kernel", block_impl="fused")
+    params = lm.init_params(cfg, seed=31, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    t = 1500
+    ids = torch.randint(0, cfg.vocab, (1, t + 1), generator=gen,
+                        device="cuda")
+
+    def step():
+        logits, cache = lm.prefill(params, cfg, ids[:, :t], max_len=t + 1)
+        nxt, _ = lm.decode_step(params, cfg, cache, ids[:, t], t)
+        return logits, nxt
+
+    def rope_keys():
+        return {k for k in L._ON_DEVICE if k[0] == "rope"}
+
+    built, keys = L.ROPE_TABLES, rope_keys()
+    want = step()
+    torch.cuda.synchronize()
+    assert L.ROPE_TABLES - built == len(rope_keys() - keys) >= 0
+    assert any(k[-1] == ids.device for k in rope_keys())
+    built = L.ROPE_TABLES
+    launches = fused_ffn.LAUNCHES, flash_attention.LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert L.ROPE_TABLES == built
+    assert fused_ffn.LAUNCHES - launches[0] == 2 * layers
+    assert flash_attention.LAUNCHES - launches[1] == layers
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

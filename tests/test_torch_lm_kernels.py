@@ -332,6 +332,103 @@ def test_apply_rope_matches_jax(fraction):
     np.testing.assert_array_equal(inv.numpy(), np.asarray(jinv))
 
 
+def _rope_keys():
+    return {k for k in tL._ON_DEVICE if k[0] == "rope"}
+
+
+def test_rope_table_is_built_once_per_key_and_device():
+    """Two calls at one key build one table; another theta, and another
+    device (meta), build one more each; the counter counts exactly the
+    keys added. The thetas are this test's own, so no other test in the
+    process has built them."""
+    x = torch.zeros((1, 3, 2, 16))
+    pos = torch.arange(3)[None]
+    before, keys = tL.ROPE_TABLES, _rope_keys()
+    for theta in (31_001.0, 31_001.0, 31_002.0, 31_001.0):
+        tL.apply_rope(x, pos, head_dim=16, fraction=1.0, theta=theta)
+    assert tL.ROPE_TABLES == before + 2
+    tL.apply_rope(x.to("meta"), pos.to("meta"), head_dim=16, fraction=1.0,
+                  theta=31_001.0)
+    assert tL.ROPE_TABLES == before + 3
+    assert len(_rope_keys() - keys) == 3
+    assert tL.rope_table(16, 1.0, 31_001.0, x) is \
+        tL.rope_table(16, 1.0, 31_001.0, x)
+    assert tL.ROPE_TABLES == before + 3
+
+
+@pytest.mark.parametrize("fraction", [1.0, 0.5])
+def test_rope_table_equals_rope_freqs_bit_for_bit(fraction):
+    x = torch.zeros((1, 1, 1, 32))
+    got = tL.rope_table(32, fraction, 10_000.0, x)
+    _, want = tL.rope_freqs(32, fraction, 10_000.0)
+    assert got.dtype == torch.float32 and got.device == x.device
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fraction", [1.0, 0.5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_apply_rope_equals_the_uncached_formula(fraction, dtype):
+    """``apply_rope`` with its kept table against the formula with the
+    table made afresh on every call, bit for bit, twice (the second call
+    reads the kept table)."""
+    gen = torch.Generator().manual_seed(31)
+    x = torch.randn((2, 9, 4, 32), generator=gen).to(dtype)
+    pos = torch.stack([torch.arange(9), torch.arange(9) + 700])
+    rot, inv = tL.rope_freqs(32, fraction, 10_000.0)
+    ang = pos[..., None].float() * inv.to(x.device)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., : rot // 2], x[..., rot // 2: rot]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    want = torch.cat([out.to(dtype), x[..., rot:]], dim=-1)
+    for _ in range(2):
+        got = tL.apply_rope(x, pos, head_dim=32, fraction=fraction,
+                            theta=10_000.0)
+        assert got.dtype == dtype
+        assert torch.equal(got, want)
+
+
+def test_rope_table_is_not_kept_from_fake_tensors():
+    """Under ``FakeTensorMode`` (the dry run) the table is made anew and
+    not kept, so a real call afterwards reads a real table, and a fake
+    call after a real one does not read the kept real table."""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+    x, pos = torch.randn((1, 5, 2, 16)), torch.arange(5)[None]
+    kw = dict(head_dim=16, fraction=0.5, theta=31_003.0)
+    with FakeTensorMode() as mode:
+        fake = tL.apply_rope(mode.from_tensor(x), mode.from_tensor(pos), **kw)
+    assert isinstance(fake, FakeTensor) and fake.shape == x.shape
+    assert not any(isinstance(t, FakeTensor) for t in tL._ON_DEVICE.values())
+    real = tL.apply_rope(x, pos, **kw)
+    assert not isinstance(real, FakeTensor)
+    with FakeTensorMode() as mode:
+        again = tL.apply_rope(mode.from_tensor(x), mode.from_tensor(pos),
+                              **kw)
+    assert isinstance(again, FakeTensor)
+    assert torch.equal(tL.apply_rope(x, pos, **kw), real)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_embed_scale_is_kept_and_equals_a_fresh_scalar(dtype):
+    """An ``embed_scale`` model's embedding (gemma2's smoke config) times
+    sqrt(d_model) rounded to the compute dtype: the kept scalar is one
+    tensor across calls and equals the one made afresh, so the embedding
+    is bit-equal to the lookup times a fresh scalar."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(registry.get_smoke("gemma2-9b"), dtype=dtype)
+    assert cfg.embed_scale
+    params = lm.init_params(cfg, seed=31, device="cpu")
+    tokens = torch.tensor([[1, 5, 7, 2]])
+    dt = getattr(torch, dtype)
+    want = params["embed"][tokens].to(dt) * torch.tensor(
+        cfg.d_model ** 0.5, dtype=dt)
+    for _ in range(2):
+        assert torch.equal(lm._embed(params, cfg, tokens), want)
+    assert lm._embed_scale(cfg, dt, want) is lm._embed_scale(cfg, dt, want)
+
+
 # --- gradients through the kernel launches --------------------------------------
 
 
